@@ -15,6 +15,7 @@ Entry points (``models.transformer.init_params``, ``launch.serve.generate``,
 ``python -m repro_torch.launch.serve``) run on ``cuda`` unless the caller asks
 for ``device="cpu"``; without a card they raise (``device.resolve_device``).
 
-Ported so far: the serving path of the dense family (qwen2-1.5b and the other
-dense configs) with the flash-attention kernel.  See ROADMAP.md for the rest.
+Ported so far: the serving paths of the dense family (qwen2-1.5b and the
+other dense configs) with the flash-attention kernel, and of the ssm family
+(mamba2-780m) with the SSD-scan kernel.  See ROADMAP.md for the rest.
 """

@@ -7,9 +7,9 @@ launches the hand-written kernel on PyTorch's current stream and raises if
 the launch is refused.  There is no fallback from the kernel to the plain
 version.  Each wrapper counts its kernel's launches in ``<wrapper>.launches``.
 
-``ops.py`` of the reference pads the head dim to 128 lanes and the sequence
-to block multiples for the TPU; the CUDA kernel masks the ragged edge itself,
-so nothing is padded here.
+``ops.py`` of the reference pads head dims and state widths to 128 lanes and
+sequences to block or chunk multiples for the TPU; the CUDA kernels mask the
+ragged edge themselves, so nothing is padded here.
 """
 
 from __future__ import annotations
@@ -19,9 +19,11 @@ import ctypes
 import torch
 
 from repro_torch.kernels import build
-from repro_torch.kernels.ref import flash_attention_ref
+from repro_torch.kernels.ref import flash_attention_ref, ssd_scan_ref
 
 _FLASH_DTYPES = (torch.float32, torch.bfloat16)
+_SSD_DTYPES = (torch.float32, torch.bfloat16)
+_SSD_CHUNKS = (64, 128)
 
 
 def _flash_lib() -> ctypes.CDLL:
@@ -90,3 +92,87 @@ def flash_attention(
 
 
 flash_attention.launches = 0
+
+
+def _ssd_lib() -> ctypes.CDLL:
+    lib = build.load("ssd_scan")
+    fn = lib.repro_ssd_scan_fwd
+    fn.argtypes = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 7 + [ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    return lib
+
+
+def ssd_scan(
+    xbar: torch.Tensor,
+    log_da: torch.Tensor,
+    bmat: torch.Tensor,
+    cmat: torch.Tensor,
+    *,
+    chunk: int = 128,
+    state0: torch.Tensor | None = None,
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """Chunked Mamba2 SSD scan: (y (B,S,H,P) in xbar's dtype, final state (B,H,P,N) fp32).
+
+    xbar (B,S,H,P), log_da (B,S,H) fp32, bmat/cmat (B,S,N) of xbar's dtype
+    (fp32 or bf16), optional fp32 ``state0`` (B,H,P,N); see
+    ``ref.ssd_scan_ref``.  On the card P and N are multiples of 8 up to 128
+    and ``chunk`` is 64 or 128.
+    """
+    if xbar.ndim != 4 or log_da.ndim != 3 or bmat.ndim != 3 or cmat.ndim != 3:
+        raise ValueError(
+            f"expected xbar (B,S,H,P), log_da (B,S,H), bmat/cmat (B,S,N), got {tuple(xbar.shape)}, "
+            f"{tuple(log_da.shape)}, {tuple(bmat.shape)}, {tuple(cmat.shape)}"
+        )
+    b, s, h, p = xbar.shape
+    n = bmat.shape[-1]
+    if tuple(log_da.shape) != (b, s, h) or tuple(bmat.shape) != (b, s, n) or cmat.shape != bmat.shape:
+        raise ValueError(
+            f"log_da {tuple(log_da.shape)}, bmat {tuple(bmat.shape)}, cmat {tuple(cmat.shape)} "
+            f"do not match xbar {tuple(xbar.shape)}"
+        )
+    if state0 is not None and tuple(state0.shape) != (b, h, p, n):
+        raise ValueError(f"state0 {tuple(state0.shape)} is not (B,H,P,N) = {(b, h, p, n)}")
+    if not (xbar.dtype == bmat.dtype == cmat.dtype) or xbar.dtype not in _SSD_DTYPES:
+        raise TypeError(
+            f"ssd_scan takes fp32 or bf16 xbar/bmat/cmat of one dtype, got {xbar.dtype}/{bmat.dtype}/{cmat.dtype}"
+        )
+    if log_da.dtype != torch.float32 or (state0 is not None and state0.dtype != torch.float32):
+        raise TypeError(f"ssd_scan takes fp32 log_da and state0, got {log_da.dtype}/"
+                        f"{None if state0 is None else state0.dtype}")
+    if chunk <= 0:
+        raise ValueError(f"chunk must be positive, got {chunk}")
+    tensors = [xbar, log_da, bmat, cmat] + ([state0] if state0 is not None else [])
+    devices = {t.device for t in tensors}
+    if len(devices) != 1:
+        raise ValueError(f"ssd_scan inputs on different devices: {devices}")
+    if xbar.device.type == "cpu":
+        return ssd_scan_ref(xbar, log_da, bmat, cmat, chunk=chunk, state0=state0)
+    if xbar.device.type != "cuda":
+        raise ValueError(f"ssd_scan runs on cpu or cuda, not {xbar.device}")
+    if chunk not in _SSD_CHUNKS:
+        raise ValueError(f"chunk {chunk} unsupported: the kernel takes {_SSD_CHUNKS}")
+    if p > 128 or p % 8 or n > 128 or n % 8:
+        raise ValueError(f"head dim {p} / state {n} unsupported: the kernel takes multiples of 8 up to 128")
+    if not all(t.is_contiguous() for t in tensors):
+        raise ValueError("ssd_scan needs contiguous inputs")
+    if b == 0 or s == 0 or h == 0:
+        raise ValueError(f"empty scan: xbar {tuple(xbar.shape)}")
+    y = torch.empty_like(xbar)
+    state = torch.empty((b, h, p, n), dtype=torch.float32, device=xbar.device)
+    # C B^T of each (batch row, chunk), computed once and shared by all heads
+    cb = torch.empty((b, -(-s // chunk), chunk, chunk), dtype=torch.float32, device=xbar.device)
+    lib = _ssd_lib()
+    with torch.cuda.device(xbar.device):
+        err = lib.repro_ssd_scan_fwd(
+            xbar.data_ptr(), log_da.data_ptr(), bmat.data_ptr(), cmat.data_ptr(), cb.data_ptr(),
+            None if state0 is None else state0.data_ptr(), y.data_ptr(), state.data_ptr(),
+            b, s, h, p, n, chunk, int(xbar.dtype == torch.bfloat16),
+            torch.cuda.current_stream(xbar.device).cuda_stream,
+        )
+    if err != 0:
+        raise RuntimeError(f"ssd_scan kernel launch failed with cudaError_t {err}")
+    ssd_scan.launches += 1
+    return y, state
+
+
+ssd_scan.launches = 0

@@ -7,6 +7,7 @@ its plain version on the card.
 from __future__ import annotations
 
 import torch
+import torch.nn.functional as F
 
 
 def flash_attention_ref(
@@ -36,3 +37,59 @@ def flash_attention_ref(
     probs = torch.softmax(scores, dim=-1)
     o = torch.einsum("bkgqs,bskd->bqkgd", probs, v.float())
     return o.reshape(b, sq, h, d).to(q.dtype)
+
+
+def ssd_scan_ref(
+    xbar: torch.Tensor,
+    log_da: torch.Tensor,
+    bmat: torch.Tensor,
+    cmat: torch.Tensor,
+    *,
+    chunk: int = 128,
+    state0: torch.Tensor | None = None,
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """Chunked Mamba2 SSD scan in fp32: the algorithm of ``repro``'s Pallas ``_kernel``.
+
+    xbar (B,S,H,P), log_da (B,S,H), bmat/cmat (B,S,N) (one group, shared by
+    all heads), optional fp32 ``state0`` (B,H,P,N).  Per chunk of ``chunk``
+    steps, with ``a_cum = cumsum(log_da)``:
+    ``y = (C B^T * L) x + exp(a_cum) * (C S^T)`` where
+    ``L[i,j] = exp(a_cum_i - a_cum_j)`` for i >= j and 0 above the diagonal
+    (never exponentiated there), and
+    ``S <- exp(a_last) S + x^T (B * exp(a_last - a_cum))``.
+    A ragged S is zero-padded to a whole chunk: padded steps have log_da 0,
+    so the state is kept through them.  Returns (y in xbar's dtype, final
+    state (B,H,P,N) fp32).
+    """
+    b, s, h, p = xbar.shape
+    n = bmat.shape[-1]
+    pad = (-s) % chunk
+    x, a, bm, cm = xbar.float(), log_da.float(), bmat.float(), cmat.float()
+    if pad:
+        x = F.pad(x, (0, 0, 0, 0, 0, pad))
+        a = F.pad(a, (0, 0, 0, pad))
+        bm = F.pad(bm, (0, 0, 0, pad))
+        cm = F.pad(cm, (0, 0, 0, pad))
+    if state0 is None:
+        state = torch.zeros((b, h, p, n), dtype=torch.float32, device=xbar.device)
+    else:
+        state = state0.float()
+    idx = torch.arange(chunk, device=xbar.device)
+    upper = (idx[:, None] < idx[None, :])[None, :, :, None]  # (1, i, j, 1): j > i
+    ys = []
+    for c0 in range(0, s + pad, chunk):
+        xj, aj = x[:, c0 : c0 + chunk], a[:, c0 : c0 + chunk]  # (B,Q,H,P), (B,Q,H)
+        bj, cj = bm[:, c0 : c0 + chunk], cm[:, c0 : c0 + chunk]  # (B,Q,N)
+        a_cum = aj.cumsum(dim=1)
+        diff = a_cum[:, :, None, :] - a_cum[:, None, :, :]  # (B,i,j,H)
+        lmat = torch.exp(diff.masked_fill(upper, float("-inf")))
+        w = torch.einsum("bin,bjn->bij", cj, bj)[..., None] * lmat
+        y_intra = torch.einsum("bijh,bjhp->bihp", w, xj)
+        y_inter = torch.einsum("bin,bhpn->bihp", cj, state) * torch.exp(a_cum)[..., None]
+        a_last = a_cum[:, -1]  # (B,H)
+        decay_out = torch.exp(a_last[:, None, :] - a_cum)  # (B,Q,H)
+        upd = torch.einsum("bjn,bjhp->bhpn", bj, xj * decay_out[..., None])
+        state = state * torch.exp(a_last)[..., None, None] + upd
+        ys.append(y_intra + y_inter)
+    y = torch.cat(ys, dim=1)[:, :s]
+    return y.to(xbar.dtype), state

@@ -14,6 +14,11 @@ Two execution knobs read differently in the port:
   attention honours ``attention_block_k``; the CUDA kernel picks its own
   tiles, because tiling does not change the function.
 
+``ssm_chunk`` is the SSD scan's chunk length, as in the reference; on the
+card the hand-written scan kernel (``repro_torch/kernels/csrc/ssd_scan.cu``)
+takes 64 or 128, and it runs on every CUDA prefill of an ssm model (the
+reference's model path runs the scan's XLA twin instead; there is no switch).
+
 ``remat``, ``scan_layers`` and ``inner_unroll`` are JAX compilation knobs
 that the port's eager PyTorch code has no use for; they are kept so that the
 configs compare equal.

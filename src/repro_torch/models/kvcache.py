@@ -1,10 +1,17 @@
-"""Decode-time KV cache of the dense family, ported from ``repro.models.kvcache``.
+"""Decode-time caches of the dense and ssm families, ported from ``repro.models.kvcache``.
 
-The cache is a dict: bf16 ``k`` and ``v`` of shape (L, B, S_max, KVH, D) and
-``len``, the number of positions written, as a Python int (the reference
-keeps a per-layer int32 array; on one device every layer has the same
-length, and a host int costs no device sync).  ``self_attention`` updates
-the tensors in place.
+Each cache is a flat dict whose ``len``, the number of positions written, is
+a Python int (the reference keeps an int32 array; on one device every layer
+has the same length, and a host int costs no device sync).
+
+* dense: bf16 ``k`` and ``v`` of shape (L, B, S_max, KVH, D);
+  ``self_attention`` updates them in place.
+* ssm: fp32 conv buffers ``conv_x`` (L, B, K-1, d_inner), ``conv_b`` and
+  ``conv_c`` (L, B, K-1, N), and the fp32 SSM ``state`` (L, B, H, P, N);
+  ``transformer.forward`` overwrites each layer's slice in place.  Their size
+  does not depend on S_max.
+
+The other families raise naming the family.
 """
 
 from __future__ import annotations
@@ -18,6 +25,18 @@ CACHE_DTYPE = torch.bfloat16
 
 def init_cache(cfg: ModelConfig, batch: int, max_len: int, device: torch.device | str) -> dict:
     """Zero cache for ``batch`` sequences of up to ``max_len`` positions."""
+    if cfg.family == "ssm":
+        k1, f32 = cfg.ssm_conv - 1, torch.float32
+        lead = (cfg.n_layers, batch)
+        return {
+            "conv_x": torch.zeros((*lead, k1, cfg.d_inner), dtype=f32, device=device),
+            "conv_b": torch.zeros((*lead, k1, cfg.ssm_state), dtype=f32, device=device),
+            "conv_c": torch.zeros((*lead, k1, cfg.ssm_state), dtype=f32, device=device),
+            "state": torch.zeros(
+                (*lead, cfg.ssm_heads, cfg.ssm_headdim, cfg.ssm_state), dtype=f32, device=device
+            ),
+            "len": 0,
+        }
     if cfg.family != "dense":
         raise NotImplementedError(f"family {cfg.family!r} caches are not ported yet")
     shape = (cfg.n_layers, batch, max_len, cfg.n_kv_heads, cfg.head_dim)

@@ -1,4 +1,4 @@
-"""Model assembly, ported from ``repro.models.transformer`` (dense family).
+"""Model assembly, ported from ``repro.models.transformer`` (dense and ssm families).
 
 Entry points:
   init_params(cfg, generator, device)   -> parameter dict
@@ -10,7 +10,7 @@ leading axis and scans; the port loops).  Matmul weights and biases are held
 in bf16 and norm scales in fp32 (see ``layers``).  ``weights.from_jax_params``
 carries the reference's parameters across.
 
-Only the dense family is ported; the other families raise
+The dense and ssm (mamba2) families are ported; the other families raise
 ``NotImplementedError`` naming the family.
 """
 
@@ -24,14 +24,16 @@ import torch
 from repro_torch.device import resolve_device
 from repro_torch.models import attention as A
 from repro_torch.models import layers as L
+from repro_torch.models import ssm as S
 from repro_torch.models.config import ModelConfig
 
 Params = dict[str, Any]
+PORTED_FAMILIES = ("dense", "ssm")
 
 
-def _require_dense(cfg: ModelConfig) -> None:
-    if cfg.family != "dense":
-        raise NotImplementedError(f"family {cfg.family!r} is not ported yet (only 'dense')")
+def require_ported(cfg: ModelConfig) -> None:
+    if cfg.family not in PORTED_FAMILIES:
+        raise NotImplementedError(f"family {cfg.family!r} is not ported yet (only {PORTED_FAMILIES})")
 
 
 # =================================================================== init
@@ -41,13 +43,15 @@ def init_params(
     """Random parameters with the reference's shapes and scales (``init_params``).
 
     Dense weights are N(0, 1) / sqrt(fan_in) (``wo``: 1 / sqrt(H * Dh)), the
-    embedding N(0, 1) * 0.02, biases zero and norm scales one, as in
+    embedding N(0, 1) * 0.02, conv weights N(0, 1) * 0.5, biases zero and norm
+    scales one; the SSM's ``dt_bias`` is log(expm1(0.01)), ``a_log``
+    log(linspace(1, 16, H)) and ``d_skip`` one, as in
     ``repro.models.transformer``.  The numbers come from ``generator``, which
     must live on ``device``, and differ from ``jax.random``'s for the same
     seed: to compare with the reference, carry its parameters across with
     ``repro_torch.weights.from_jax_params``.
     """
-    _require_dense(cfg)
+    require_ported(cfg)
     dev = resolve_device(device)
 
     def normal(shape, scale=None):
@@ -61,10 +65,35 @@ def init_params(
     def ones(n):
         return torch.ones((n,), dtype=torch.float32, device=dev)
 
+    def mamba():
+        di, n, h = cfg.d_inner, cfg.ssm_state, cfg.ssm_heads
+        f32 = dict(dtype=torch.float32, device=dev)
+        return {
+            "w_z": normal((d, di)),
+            "w_x": normal((d, di)),
+            "w_b": normal((d, n)),
+            "w_c": normal((d, n)),
+            "w_dt": normal((d, h)),
+            "w_conv_x": normal((cfg.ssm_conv, di), scale=0.5),
+            "b_conv_x": zeros(di),
+            "w_conv_b": normal((cfg.ssm_conv, n), scale=0.5),
+            "b_conv_b": zeros(n),
+            "w_conv_c": normal((cfg.ssm_conv, n), scale=0.5),
+            "b_conv_c": zeros(n),
+            "dt_bias": torch.log(torch.expm1(torch.full((h,), 0.01, **f32))),
+            "a_log": torch.log(torch.linspace(1.0, 16.0, h, **f32)),
+            "d_skip": ones(h),
+            "norm": ones(di),
+            "w_out": normal((di, d)),
+        }
+
     d, v, hd, f = cfg.d_model, cfg.vocab, cfg.head_dim, cfg.d_ff
     params: Params = {"embed": normal((v, d), scale=0.02), "final_norm": ones(d)}
     if not cfg.tie_embeddings:
         params["lm_head"] = normal((d, v))
+    if cfg.family == "ssm":
+        params["layers"] = [{"ln": ones(d), "mamba": mamba()} for _ in range(cfg.n_layers)]
+        return params
     layers = []
     for _ in range(cfg.n_layers):
         attn = {
@@ -95,6 +124,12 @@ def _decoder_block(cfg: ModelConfig, x, p, positions, cache):
     return x + L.mlp_block(h, p["mlp"], cfg.mlp), new_cache
 
 
+def _mamba_layer(cfg: ModelConfig, x, p, cache):
+    h = L.rms_norm(x, p["ln"], cfg.norm_eps)
+    out, new_cache = S.mamba_block(h, p["mamba"], cfg, cache)
+    return x + out, new_cache
+
+
 # =================================================================== forward
 def forward(params: Params, cfg: ModelConfig, batch: dict, cache: dict | None = None):
     """Returns (logits (B,S,V) fp32, aux scalar, new_cache).
@@ -103,20 +138,28 @@ def forward(params: Params, cfg: ModelConfig, batch: dict, cache: dict | None = 
     positions continue from ``cache["len"]`` and the cache is updated in
     place; the returned cache shares its tensors.
     """
-    _require_dense(cfg)
+    require_ported(cfg)
     tokens = batch["tokens"]
     x = L.embed_tokens(tokens, params["embed"])
     b, s = tokens.shape
-    pos0 = cache["len"] if cache is not None else 0
-    positions = (pos0 + torch.arange(s, device=tokens.device))[None, :].expand(b, s)
-    for i, p in enumerate(params["layers"]):
-        layer_cache = None
-        if cache is not None:
-            layer_cache = {"k": cache["k"][i], "v": cache["v"][i], "len": cache["len"]}
-        x, _ = _decoder_block(cfg, x, p, positions, layer_cache)
+    if cfg.family == "ssm":
+        for i, p in enumerate(params["layers"]):
+            layer_cache = {k: cache[k][i] for k in S.CACHE_KEYS} if cache is not None else None
+            x, layer_new = _mamba_layer(cfg, x, p, layer_cache)
+            if cache is not None:
+                for k in S.CACHE_KEYS:
+                    cache[k][i].copy_(layer_new[k])
+    else:
+        pos0 = cache["len"] if cache is not None else 0
+        positions = (pos0 + torch.arange(s, device=tokens.device))[None, :].expand(b, s)
+        for i, p in enumerate(params["layers"]):
+            layer_cache = None
+            if cache is not None:
+                layer_cache = {"k": cache["k"][i], "v": cache["v"][i], "len": cache["len"]}
+            x, _ = _decoder_block(cfg, x, p, positions, layer_cache)
     new_cache = None
     if cache is not None:
-        new_cache = {"k": cache["k"], "v": cache["v"], "len": cache["len"] + s}
+        new_cache = {**cache, "len": cache["len"] + s}
     x = L.rms_norm(x, params["final_norm"], cfg.norm_eps)
     w_head = params["embed"].t() if cfg.tie_embeddings else params["lm_head"]
     logits = L.lm_head(x, w_head)

@@ -100,10 +100,11 @@ def test_launcher_refuses_unported_paths(capsys):
         assert "not yet ported" in capsys.readouterr().err
 
 
-def test_launcher_runs_reduced_on_cpu(capsys):
+@pytest.mark.parametrize("arch", ["qwen2-1.5b", "mamba2-780m"])
+def test_launcher_runs_reduced_on_cpu(arch, capsys):
     from repro_torch.launch import serve
 
-    rc = serve.main(["--arch", "qwen2-1.5b", "--reduced", "--device", "cpu",
+    rc = serve.main(["--arch", arch, "--reduced", "--device", "cpu",
                      "--batch", "2", "--prompt-len", "8", "--gen", "3"])
     assert rc == 0
     assert "generated (2, 3) on cpu" in capsys.readouterr().out
@@ -121,7 +122,7 @@ def test_configs_equal_the_reference(arch):
     }
 
 
-@pytest.mark.parametrize("arch", [a for a in JARCHS if jget_config(a).family != "dense"])
+@pytest.mark.parametrize("arch", [a for a in JARCHS if jget_config(a).family not in TT.PORTED_FAMILIES])
 def test_unported_families_raise_naming_the_family(arch):
     cfg = reduced(get_config(arch))
     with pytest.raises(NotImplementedError, match=repr(cfg.family)):
@@ -135,7 +136,7 @@ def test_init_params_shapes_match_the_reference():
 
     from repro.models import transformer as JT
 
-    for arch in ("qwen2-1.5b", "granite-20b"):
+    for arch in ("qwen2-1.5b", "granite-20b", "mamba2-780m"):
         jcfg = jreduced(jget_config(arch))
         jshapes = jax.eval_shape(lambda k, c=jcfg: JT.init_params(c, k), jax.random.PRNGKey(0))
         params = TT.init_params(reduced(get_config(arch)), torch.Generator().manual_seed(0), "cpu")

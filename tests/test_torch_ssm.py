@@ -1,0 +1,191 @@
+"""The port's SSD scan and Mamba2 block against ``repro``'s, on the CPU.
+
+On a CPU tensor ``repro_torch.kernels.ops.ssd_scan`` runs its plain version
+(``ref.ssd_scan_ref``); it is held against ``repro.kernels.ops.ssd_scan`` (the
+Pallas kernel in interpret mode, as ``tests/test_kernels.py`` runs it) and
+against the reference's XLA twin ``repro.models.ssm.ssd_chunked``, on the
+same inputs made with numpy.  The CUDA kernel itself is held against the
+plain version on the card by ``chip_smoke.py``.
+
+Bars are the reference's own (``tests/test_kernels.py``): the Pallas kernel's
+fp32 2e-5 and bf16 atol 2e-2 / rtol 5e-2; the twin's fp32 atol 2e-5 / rtol
+2e-4; bf16 2e-2 for the block, whose bf16 roundings fall at other places in
+the two packages.  The twin rounds its intra-chunk weights to bf16 before the
+second product (``ssm.py:84``) where the Pallas kernel and the port keep
+them in fp32, so on bf16 the block agrees to the bar, not bit for bit.
+"""
+
+import dataclasses
+
+import numpy as np
+import pytest
+
+torch = pytest.importorskip("torch")
+
+import jax.numpy as jnp  # noqa: E402
+
+from repro.kernels import ops as jops  # noqa: E402
+from repro.kernels import ref as jref  # noqa: E402
+from repro.models import ssm as JS  # noqa: E402
+from repro.models.config import ModelConfig as JConfig  # noqa: E402
+from repro_torch.kernels import ops  # noqa: E402
+from repro_torch.kernels import ref  # noqa: E402
+from repro_torch.models import ssm as TS  # noqa: E402
+from repro_torch.models.config import ModelConfig as TConfig  # noqa: E402
+
+JDT = {"float32": jnp.float32, "bfloat16": jnp.bfloat16}
+TDT = {"float32": torch.float32, "bfloat16": torch.bfloat16}
+TWIN = dict(atol=2e-5, rtol=2e-4)
+BF16 = dict(atol=2e-2, rtol=2e-2)
+
+
+def _np(x):
+    if isinstance(x, torch.Tensor):
+        return x.float().numpy()
+    return np.asarray(jnp.asarray(x).astype(jnp.float32))
+
+
+def _scan_inputs(seed, b, s, h, p, n, dt="float32", state=False):
+    """xbar, log_da, B, C (and state0) as numpy, scaled as tests/test_kernels.py scales them."""
+    rng = np.random.default_rng(seed)
+    arrs = [
+        rng.standard_normal((b, s, h, p)).astype(np.float32) * 0.2,
+        -np.abs(rng.standard_normal((b, s, h))).astype(np.float32) * 0.1,
+        rng.standard_normal((b, s, n)).astype(np.float32) * 0.3,
+        rng.standard_normal((b, s, n)).astype(np.float32) * 0.3,
+    ]
+    if state:
+        arrs.append(rng.standard_normal((b, h, p, n)).astype(np.float32))
+    jin = [jnp.asarray(a).astype(JDT[dt] if i in (0, 2, 3) else jnp.float32) for i, a in enumerate(arrs)]
+    tin = [torch.from_numpy(a).to(TDT[dt] if i in (0, 2, 3) else torch.float32) for i, a in enumerate(arrs)]
+    return jin, tin
+
+
+@pytest.mark.parametrize(
+    "b,s,h,p,n,dt",
+    [
+        (2, 256, 4, 64, 64, "float32"),
+        (1, 300, 8, 64, 128, "bfloat16"),  # mamba2-780m-like, ragged seq
+        (1, 128, 2, 32, 16, "float32"),
+    ],
+)
+def test_ssd_scan_matches_the_pallas_kernel(b, s, h, p, n, dt):
+    (jx, ja, jb, jc), (tx, ta, tb, tc) = _scan_inputs(0, b, s, h, p, n, dt)
+    y_ref = jops.ssd_scan(jx, ja, jb, jc)
+    y, state = ops.ssd_scan(tx, ta, tb, tc)
+    assert y.dtype == tx.dtype and y.shape == tx.shape
+    assert state.dtype == torch.float32 and state.shape == (b, h, p, n)
+    tol = dict(atol=2e-2, rtol=5e-2) if dt == "bfloat16" else dict(atol=2e-5, rtol=2e-5)
+    np.testing.assert_allclose(_np(y), _np(y_ref), **tol)
+
+
+@pytest.mark.parametrize("chunk", [16, 64, 128])
+@pytest.mark.parametrize("with_state", [False, True])
+def test_ssd_scan_ref_matches_the_xla_twin(chunk, with_state):
+    """y and the final state, S = 200 (ragged for every chunk), fp32."""
+    jin, tin = _scan_inputs(1, 2, 200, 4, 8, 16, state=with_state)
+    y_ref, st_ref = JS.ssd_chunked(*jin[:4], chunk, jin[4] if with_state else None)
+    y, st = ref.ssd_scan_ref(*tin[:4], chunk=chunk, state0=tin[4] if with_state else None)
+    np.testing.assert_allclose(_np(y), _np(y_ref), **TWIN)
+    np.testing.assert_allclose(_np(st), _np(st_ref), **TWIN)
+
+
+def test_ssd_scan_state_carries_across_calls():
+    """Two calls chained through the state equal one call over the whole sequence."""
+    _, (tx, ta, tb, tc) = _scan_inputs(2, 1, 300, 2, 16, 8)
+    y, st = ops.ssd_scan(tx, ta, tb, tc, chunk=64)
+    y1, st1 = ops.ssd_scan(tx[:, :200], ta[:, :200], tb[:, :200], tc[:, :200], chunk=64)
+    y2, st2 = ops.ssd_scan(tx[:, 200:], ta[:, 200:], tb[:, 200:], tc[:, 200:], chunk=64, state0=st1)
+    np.testing.assert_allclose(_np(torch.cat([y1, y2], 1)), _np(y), **TWIN)
+    np.testing.assert_allclose(_np(st2), _np(st), **TWIN)
+
+
+def test_cpu_tensors_never_count_a_launch():
+    before = ops.ssd_scan.launches
+    _, tin = _scan_inputs(3, 1, 40, 2, 8, 8, state=True)
+    ops.ssd_scan(*tin[:4], chunk=16, state0=tin[4])
+    assert ops.ssd_scan.launches == before == 0
+
+
+def test_ssd_scan_rejects_bad_dtypes_and_shapes():
+    x, a = torch.zeros((1, 4, 2, 8)), torch.zeros((1, 4, 2))
+    bm = torch.zeros((1, 4, 8))
+    with pytest.raises(TypeError, match="one dtype"):
+        ops.ssd_scan(x.bfloat16(), a, bm, bm)
+    with pytest.raises(TypeError, match="fp32 or bf16"):
+        ops.ssd_scan(x.half(), a, bm.half(), bm.half())
+    with pytest.raises(TypeError, match="fp32 log_da"):
+        ops.ssd_scan(x, a.bfloat16(), bm, bm)
+    with pytest.raises(TypeError, match="fp32 log_da and state0"):
+        ops.ssd_scan(x, a, bm, bm, state0=torch.zeros((1, 2, 8, 8), dtype=torch.bfloat16))
+    with pytest.raises(ValueError, match="expected xbar"):
+        ops.ssd_scan(x[0], a, bm, bm)
+    with pytest.raises(ValueError, match="do not match"):
+        ops.ssd_scan(x, a[:, :3], bm, bm)
+    with pytest.raises(ValueError, match="do not match"):
+        ops.ssd_scan(x, a, bm, torch.zeros((1, 4, 16)))
+    with pytest.raises(ValueError, match="state0"):
+        ops.ssd_scan(x, a, bm, bm, state0=torch.zeros((1, 2, 8, 4)))
+    with pytest.raises(ValueError, match="chunk"):
+        ops.ssd_scan(x, a, bm, bm, chunk=0)
+
+
+@pytest.mark.parametrize("with_state", [False, True])
+def test_depthwise_conv1d_matches_the_reference(with_state):
+    rng = np.random.default_rng(4)
+    x = rng.standard_normal((2, 9, 24)).astype(np.float32)
+    w = rng.standard_normal((4, 24)).astype(np.float32) * 0.5
+    b = rng.standard_normal((24,)).astype(np.float32) * 0.1
+    st = rng.standard_normal((2, 3, 24)).astype(np.float32) if with_state else None
+    bf = (jnp.bfloat16, torch.bfloat16)
+    jy, jst = JS.depthwise_conv1d(*(jnp.asarray(a).astype(bf[0]) for a in (x, w, b)),
+                                  None if st is None else jnp.asarray(st))
+    ty, tst = TS.depthwise_conv1d(*(torch.from_numpy(a).to(bf[1]) for a in (x, w, b)),
+                                  None if st is None else torch.from_numpy(st))
+    assert ty.dtype == torch.bfloat16 and tst.shape == (2, 3, 24)
+    # the same bf16 products summed in the same order: equal, not just close
+    np.testing.assert_array_equal(_np(ty), _np(jy))
+    np.testing.assert_array_equal(_np(tst), _np(jst))
+
+
+def _block_cfg(cls):
+    return cls(name="ssm-t", family="ssm", n_layers=1, d_model=64, n_heads=0, n_kv_heads=0,
+               d_ff=0, vocab=64, head_dim=1, ssm_state=16, ssm_headdim=16, ssm_chunk=64)
+
+
+def test_mamba_block_prefill_then_decode_matches_the_reference():
+    """Prefill of 100 tokens (two chunks of 64, ragged) with a cache, then a
+    decode step: the output and all four cache entries."""
+    jcfg, tcfg = _block_cfg(JConfig), _block_cfg(TConfig)
+    assert dataclasses.asdict(jcfg) == dataclasses.asdict(tcfg)
+    di, n, h, k1 = tcfg.d_inner, tcfg.ssm_state, tcfg.ssm_heads, tcfg.ssm_conv - 1
+    d = tcfg.d_model
+    rng = np.random.default_rng(5)
+
+    def w(*shape, scale=None):
+        return rng.standard_normal(shape).astype(np.float32) * (scale or 1.0 / np.sqrt(shape[0]))
+
+    p = {
+        "w_z": w(d, di), "w_x": w(d, di), "w_b": w(d, n), "w_c": w(d, n), "w_dt": w(d, h),
+        "w_conv_x": w(4, di, scale=0.5), "b_conv_x": w(di, scale=0.1),
+        "w_conv_b": w(4, n, scale=0.5), "b_conv_b": w(n, scale=0.1),
+        "w_conv_c": w(4, n, scale=0.5), "b_conv_c": w(n, scale=0.1),
+        "dt_bias": np.log(np.expm1(np.full((h,), 0.01, np.float32))) + w(h, scale=0.1),
+        "a_log": np.log(np.linspace(1.0, 16.0, h, dtype=np.float32)),
+        "d_skip": 1.0 + w(h, scale=0.1), "norm": 1.0 + w(di, scale=0.1), "w_out": w(di, d),
+    }
+    fp32 = ("dt_bias", "a_log", "d_skip", "norm")
+    jp = {k: jnp.asarray(v) for k, v in p.items()}
+    tp = {k: torch.from_numpy(v).to(torch.float32 if k in fp32 else torch.bfloat16) for k, v in p.items()}
+    jcache = {"conv_x": jnp.zeros((2, k1, di)), "conv_b": jnp.zeros((2, k1, n)),
+              "conv_c": jnp.zeros((2, k1, n)), "state": jnp.zeros((2, h, tcfg.ssm_headdim, n))}
+    tcache = {k: torch.zeros(v.shape) for k, v in jcache.items()}
+    for s in (100, 1):
+        x = rng.standard_normal((2, s, d)).astype(np.float32)
+        jy, jcache = JS.mamba_block(jnp.asarray(x).astype(jnp.bfloat16), jp, jcfg, jcache)
+        ty, tcache = TS.mamba_block(torch.from_numpy(x).bfloat16(), tp, tcfg, tcache)
+        assert ty.dtype == torch.bfloat16 and ty.shape == (2, s, d)
+        np.testing.assert_allclose(_np(ty), _np(jy), **BF16)
+        for k in TS.CACHE_KEYS:
+            assert tcache[k].dtype == torch.float32 and tcache[k].shape == jcache[k].shape
+            np.testing.assert_allclose(_np(tcache[k]), _np(jcache[k]), **BF16, err_msg=k)
