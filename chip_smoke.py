@@ -11,7 +11,9 @@ Phases, each failing loudly (an exception or a non-zero exit):
    one nvcc per source, all started together, and print ptxas's register and
    spill lines;
 3. hold each kernel against its plain PyTorch version on the card:
-   flash attention at ten shapes; the SSD scan, for y and the final state, at
+   flash attention at eleven shapes, every one in bf16 (the tensor-core
+   kernel) and the fp32 ones in fp32 too (the CUDA-core kernel), and its
+   refusal of a misaligned bf16 input; the SSD scan, for y and the final state, at
    the three shapes of ``tests/test_kernels.py``, the mamba2-780m slice shape,
    a ragged S with a nonzero initial state, the reduced shape, a part-filled
    tile of state rows, chunk 64 against chunk 128, and a B that is not
@@ -43,9 +45,16 @@ Phases, each failing loudly (an exception or a non-zero exit):
    kernels); per kernel at its slice shape: the kernel beside its plain
    version, its bound and, where one PyTorch call computes the same function,
    that call (``scaled_dot_product_attention`` for flash, timed as a
-   yardstick only: the port never calls it; none for the SSD scan);
-6. a ``{"slice": ...}`` line per model, a ``{"kernels": [...]}`` line, then
-   the result line, last:
+   yardstick only: the port never calls it; none for the SSD scan).  Each of
+   these is timed by its device time per call (``device_ms``: the kernels'
+   own time in torch.profiler, summed over the kernels of 20 calls, over 20;
+   the median of three profiler sessions),
+   with the back-to-back CUDA-event time per call beside it (``event_ms``),
+   which also counts the host whenever a call's dispatch outlasts its kernels;
+6. a ``{"slice": ...}`` line per model, a ``{"kernels": [...]}`` line (``ms``,
+   ``plain_ms`` and ``library_ms`` are device times; ``event_ms`` and the
+   other ``*_event_ms`` the CUDA-event times; ``bound_share`` is
+   ``bound_ms / ms``), then the result line, last:
    ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
 """
 
@@ -70,10 +79,11 @@ PEAK_FLOPS = {"bfloat16": 989e12, "float32": 67e12}
 BF16_TOL = dict(atol=2e-2, rtol=2e-2)  # the reference's bf16 flash bar
 F32_TOL = dict(atol=2e-5, rtol=2e-5)  # the reference's fp32 kernel bar
 SSD_BF16_TOL = dict(atol=2e-2, rtol=5e-2)  # the reference's bf16 SSD bar (tests/test_kernels.py)
-# End to end in bf16 layers: the flash route keeps q*scale and P in fp32
-# where the plain chunked route rounds them to bf16, and the bf16 residual
-# stream carries such 2^-8 steps through every layer; for qwen2-1.5b a
-# relative L2 error of 2e-2 (five bf16 steps) admits that and no wrong function.
+# End to end in bf16 layers: the flash route scales the fp32 scores where the
+# plain chunked route rounds q*scale to bf16 (both round P to bf16 for P V),
+# and the bf16 residual stream carries such 2^-8 steps through every layer;
+# for qwen2-1.5b a relative L2 error of 2e-2 (five bf16 steps) admits that
+# and no wrong function.
 PREFILL_REL_L2 = 2e-2
 # mamba2-780m's 48 layers amplify single bf16 rounding flips of the scan's
 # output far more: the plain scan against itself with another chunking (the
@@ -112,25 +122,43 @@ def cuda_time_ms(fn, reps: int, warmup: int = 2) -> float:
     return start.elapsed_time(end) / reps
 
 
-def profile_ms(fn) -> tuple[float, int, list[tuple[str, float]]]:
-    """One warm run of ``fn`` under torch.profiler: (device-busy ms, kernels launched, top kernels).
+def device_ms(fn, calls: int = 20, warmup: int = 3, sessions: int = 3) -> dict:
+    """Device time per call of ``fn``: ``ms``, ``kernels`` launched per call,
+    ``top`` [(kernel, ms per call)] heaviest first, and ``sessions_ms``.
 
-    Device-busy time sums the kernels' own device time, as the profiler's
-    table totals it.  The profiler slows the host, so the idle share is taken
-    against the unprofiled CUDA-event time of the same call.
+    The self device time of every kernel that ``calls`` back-to-back calls
+    launch, from torch.profiler, summed and divided by ``calls``.  Unlike
+    events around the calls it leaves out the host's dispatch and the gaps it
+    makes.  Inputs stay warm in L2, as for ``cuda_time_ms``.  The profiler
+    has been seen to lose a session's kernels (a call timed below the card's
+    bound), so the session with the median time of ``sessions`` is kept.
     """
     import torch
     from torch.profiler import ProfilerActivity, profile
 
-    fn()
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+    for _ in range(warmup):
         fn()
-        torch.cuda.synchronize()
-    kernels = [e for e in prof.key_averages() if e.device_type == torch.autograd.DeviceType.CUDA]
-    busy_ms = sum(e.self_device_time_total for e in kernels) / 1e3
-    top = sorted(((e.key, e.self_device_time_total / 1e3) for e in kernels), key=lambda t: -t[1])
-    return busy_ms, sum(e.count for e in kernels), top
+    torch.cuda.synchronize()
+    runs = []
+    for _ in range(sessions):
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            for _ in range(calls):
+                fn()
+            torch.cuda.synchronize()
+        kernels = [e for e in prof.key_averages() if e.device_type == torch.autograd.DeviceType.CUDA]
+        total_us = sum(e.self_device_time_total for e in kernels)
+        top = sorted(((e.key, e.self_device_time_total / 1e3 / calls) for e in kernels), key=lambda t: -t[1])
+        runs.append((total_us / 1e3 / calls, sum(e.count for e in kernels) / calls, top))
+    runs.sort(key=lambda r: r[0])
+    ms, kernels, top = runs[len(runs) // 2]
+    if ms <= 0:
+        raise RuntimeError("torch.profiler recorded no device time")
+    return {"ms": ms, "kernels": kernels, "top": top, "sessions_ms": [r[0] for r in runs]}
+
+
+def timed(fn, calls: int = 20) -> dict:
+    """``fn`` by its device time (``device_ms``) and by CUDA events (``event_ms``)."""
+    return {**device_ms(fn, calls), "event_ms": cuda_time_ms(fn, reps=calls)}
 
 
 def _bound(nbytes: float, flops: float, dtype) -> tuple[float, str]:
@@ -179,8 +207,9 @@ def check_flash() -> dict:
     from repro_torch.kernels import ops, ref
 
     gen = torch.Generator(device="cuda").manual_seed(SEED)
+    f32, bf16 = torch.float32, torch.bfloat16
     cases = [
-        # name, b, sq, skv, h, kvh, d, dtype, causal, q_offset
+        # name, b, sq, skv, h, kvh, d, dtype, causal, q_offset; an fp32 case runs in bf16 too
         ("slice prefill", BATCH, PROMPT, PROMPT + GEN, 12, 2, 128, torch.bfloat16, True, 0),
         ("mha d64", 1, 128, 128, 4, 4, 64, torch.float32, True, 0),
         ("gqa d80", 2, 256, 256, 8, 2, 80, torch.bfloat16, True, 0),
@@ -191,26 +220,28 @@ def check_flash() -> dict:
         ("q_offset d32", 2, 40, 100, 4, 2, 32, torch.float32, True, 37),
         ("non-causal ragged d64", 1, 128, 200, 4, 4, 64, torch.float32, False, 0),
         ("non-causal d64", 1, 128, 256, 4, 4, 64, torch.float32, False, 0),
+        ("padded lanes d40", 2, 150, 150, 6, 1, 40, torch.bfloat16, True, 0),
     ]
     slice_err = None
-    for name, b, sq, skv, h, kvh, d, dt, causal, off in cases:
-        q = torch.randn((b, sq, h, d), generator=gen, device="cuda").to(dt)
-        k = torch.randn((b, skv, kvh, d), generator=gen, device="cuda").to(dt)
-        v = torch.randn((b, skv, kvh, d), generator=gen, device="cuda").to(dt)
-        o = ops.flash_attention(q, k, v, causal=causal, q_offset=off)
-        torch.cuda.synchronize()
-        r = ref.flash_attention_ref(q, k, v, causal=causal, q_offset=off)
-        torch.cuda.synchronize()
-        tol = BF16_TOL if dt == torch.bfloat16 else F32_TOL
-        err = (o.float() - r.float()).abs().max().item()
-        ok = torch.allclose(o.float(), r.float(), **tol)
-        log(f"kernel flash_attention [{name}] q{tuple(q.shape)} kv{tuple(k.shape)} "
-            f"{str(dt)[6:]} causal={causal} q_offset={off}: max_abs_err={err:.3e} "
-            f"(atol=rtol={tol['atol']:g}) {'ok' if ok else 'FAIL'}")
-        if not ok:
-            raise AssertionError(f"flash_attention [{name}] disagrees with its plain version")
-        if name == "slice prefill":
-            slice_err = err
+    for name, b, sq, skv, h, kvh, d, case_dt, causal, off in cases:
+        for dt in (case_dt,) if case_dt == bf16 else (f32, bf16):
+            q = torch.randn((b, sq, h, d), generator=gen, device="cuda").to(dt)
+            k = torch.randn((b, skv, kvh, d), generator=gen, device="cuda").to(dt)
+            v = torch.randn((b, skv, kvh, d), generator=gen, device="cuda").to(dt)
+            o = ops.flash_attention(q, k, v, causal=causal, q_offset=off)
+            torch.cuda.synchronize()
+            r = ref.flash_attention_ref(q, k, v, causal=causal, q_offset=off)
+            torch.cuda.synchronize()
+            tol = BF16_TOL if dt == bf16 else F32_TOL
+            err = (o.float() - r.float()).abs().max().item()
+            ok = torch.allclose(o.float(), r.float(), **tol) and o.dtype == dt
+            log(f"kernel flash_attention [{name}] q{tuple(q.shape)} kv{tuple(k.shape)} "
+                f"{str(dt)[6:]} causal={causal} q_offset={off}: max_abs_err={err:.3e} "
+                f"(atol=rtol={tol['atol']:g}) {'ok' if ok else 'FAIL'}")
+            if not ok:
+                raise AssertionError(f"flash_attention [{name}] {dt} disagrees with its plain version")
+            if name == "slice prefill":
+                slice_err = err
     q = torch.zeros((1, 8, 2, 12), device="cuda")
     try:
         ops.flash_attention(q, q, q)
@@ -218,6 +249,16 @@ def check_flash() -> dict:
         log(f"kernel flash_attention refuses head dim 12: {e}")
     else:
         raise AssertionError("flash_attention accepted head dim 12")
+    # a contiguous bf16 view that starts 2 bytes past its allocation
+    shape = (1, 64, 2, 64)
+    q_odd = torch.zeros(torch.Size(shape).numel() + 1, dtype=bf16, device="cuda")[1:].view(shape)
+    assert q_odd.is_contiguous() and q_odd.data_ptr() % 16 == 2
+    try:
+        ops.flash_attention(q_odd, q_odd, q_odd)
+    except ValueError as e:
+        log(f"kernel flash_attention refuses a misaligned bf16 input: {e}")
+    else:
+        raise AssertionError("flash_attention accepted a bf16 input 2 bytes off a 16-byte boundary")
     return {"max_abs_err": slice_err}
 
 
@@ -500,11 +541,14 @@ def serve_slice(arch: str) -> tuple[dict, int]:
 
         breakdown = {}
         for name, fn, wall_ms in (("prefill", prefill, prefill_ms), ("decode step", decode_step, decode_ms)):
-            busy_ms, n_kernels, top = profile_ms(fn)
+            # one warm call; the profiler slows the host, so the idle share is
+            # taken against the unprofiled CUDA-event time of the same call
+            prof = device_ms(fn, calls=1, warmup=1, sessions=1)
+            busy_ms, n_kernels, top = prof["ms"], prof["kernels"], prof["top"]
             breakdown[name] = {"wall_ms": wall_ms, "device_busy_ms": busy_ms,
-                               "idle_share": 1.0 - busy_ms / wall_ms, "kernels": n_kernels}
+                               "idle_share": 1.0 - busy_ms / wall_ms, "kernels": round(n_kernels)}
             log(f"profile {arch} {name}: {wall_ms:.3f} ms, device busy {busy_ms:.3f} ms, "
-                f"idle share {1.0 - busy_ms / wall_ms:.3f}, {n_kernels} kernels; top: "
+                f"idle share {1.0 - busy_ms / wall_ms:.3f}, {n_kernels:g} kernels; top: "
                 + "; ".join(f"{k[:48]} {ms:.3f} ms" for k, ms in top[:6]))
     log(f"{arch} prefill {BATCH}x{PROMPT}: {prefill_ms:.3f} ms ({BATCH * PROMPT / prefill_ms * 1e3:.0f} tok/s); "
         f"decode: {decode_ms:.3f} ms/step ({BATCH / decode_ms * 1e3:.1f} tok/s at batch {BATCH}); "
@@ -526,21 +570,33 @@ def time_flash() -> dict:
     q = torch.randn((BATCH, PROMPT, cfg.n_heads, cfg.head_dim), generator=gen, device="cuda").bfloat16()
     k = torch.randn((BATCH, PROMPT + GEN, cfg.n_kv_heads, cfg.head_dim), generator=gen, device="cuda").bfloat16()
     v = torch.randn_like(k)
-    kernel_ms = cuda_time_ms(lambda: ops.flash_attention(q, k, v, causal=True), reps=20)
-    plain_ms = cuda_time_ms(lambda: ref.flash_attention_ref(q, k, v, causal=True), reps=20)
     qt, kt, vt = q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2)
 
     def sdpa():
         return torch.nn.functional.scaled_dot_product_attention(qt, kt, vt, is_causal=True, enable_gqa=True)
 
     sdpa_err = (sdpa().transpose(1, 2).float() - ref.flash_attention_ref(q, k, v).float()).abs().max().item()
-    library_ms = cuda_time_ms(sdpa, reps=20)
+    # kernel, SDPA, SDPA, kernel: each measured twice, in turns
+    kernel = timed(lambda: ops.flash_attention(q, k, v, causal=True))
+    library = timed(sdpa)
+    library2 = timed(sdpa)
+    kernel2 = timed(lambda: ops.flash_attention(q, k, v, causal=True))
+    plain = timed(lambda: ref.flash_attention_ref(q, k, v, causal=True), calls=10)
     bound_ms, bound_by = flash_bound_ms(q, k, causal=True)
-    log(f"flash_attention q{tuple(q.shape)} kv{tuple(k.shape)} bf16 causal: kernel {kernel_ms:.4f} ms, "
-        f"plain {plain_ms:.4f} ms, sdpa {library_ms:.4f} ms (max abs vs plain {sdpa_err:.2e}), "
-        f"bound {bound_ms:.4f} ms ({bound_by})")
-    return {"ms": kernel_ms, "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by,
-            "library_ms": library_ms}
+    log(f"flash_attention q{tuple(q.shape)} kv{tuple(k.shape)} bf16 causal, device ms per call "
+        f"(CUDA-event ms per call): kernel {kernel['ms']:.4f} / {kernel2['ms']:.4f} "
+        f"({kernel['event_ms']:.4f} / {kernel2['event_ms']:.4f}), sdpa {library['ms']:.4f} / "
+        f"{library2['ms']:.4f} ({library['event_ms']:.4f} / {library2['event_ms']:.4f}; "
+        f"{library['kernels']:g} kernels a call; max abs vs plain {sdpa_err:.2e}), plain {plain['ms']:.4f} "
+        f"({plain['event_ms']:.4f}), bound {bound_ms:.5f} ms ({bound_by})")
+    log(f"flash_attention kernels: {[k for k, _ in kernel['top']]}; sdpa kernels: {[k for k, _ in library['top']]}")
+    log("device ms per call in each profiler session: " + "; ".join(
+        f"{name} {', '.join(f'{x:.4f}' for x in t['sessions_ms'])}"
+        for name, t in (("kernel", kernel), ("sdpa", library), ("sdpa", library2), ("kernel", kernel2),
+                        ("plain", plain))))
+    return {"ms": kernel["ms"], "event_ms": kernel["event_ms"], "plain_ms": plain["ms"],
+            "plain_event_ms": plain["event_ms"], "bound_ms": bound_ms, "bound_by": bound_by,
+            "library_ms": library["ms"], "library_event_ms": library["event_ms"]}
 
 
 def time_ssd() -> dict:
@@ -558,15 +614,18 @@ def time_ssd() -> dict:
                                   torch.bfloat16, state=False)
     s0 = torch.zeros((BATCH, cfg.ssm_heads, cfg.ssm_headdim, cfg.ssm_state), device="cuda")
     chunk = cfg.ssm_chunk
-    kernel_ms = cuda_time_ms(lambda: ops.ssd_scan(x, la, bm, cm, chunk=chunk, state0=s0), reps=20)
-    kernel64_ms = cuda_time_ms(lambda: ops.ssd_scan(x, la, bm, cm, chunk=64, state0=s0), reps=20)
-    plain_ms = cuda_time_ms(lambda: ref.ssd_scan_ref(x, la, bm, cm, chunk=chunk, state0=s0), reps=10)
+    kernel = timed(lambda: ops.ssd_scan(x, la, bm, cm, chunk=chunk, state0=s0))
+    kernel64 = timed(lambda: ops.ssd_scan(x, la, bm, cm, chunk=64, state0=s0))
+    plain = timed(lambda: ref.ssd_scan_ref(x, la, bm, cm, chunk=chunk, state0=s0), calls=10)
     bound_ms, bound_by = ssd_bound_ms(x, la, bm, s0, chunk)
-    log(f"ssd_scan x{tuple(x.shape)} n={cfg.ssm_state} bf16, state0 given: kernel {kernel_ms:.4f} ms "
-        f"(chunk {chunk}), {kernel64_ms:.4f} ms (chunk 64), plain {plain_ms:.4f} ms, "
+    log(f"ssd_scan x{tuple(x.shape)} n={cfg.ssm_state} bf16, state0 given, device ms per call "
+        f"(CUDA-event ms per call): kernel {kernel['ms']:.4f} ({kernel['event_ms']:.4f}; "
+        f"{kernel['kernels']:g} kernels a call) at chunk {chunk}, {kernel64['ms']:.4f} "
+        f"({kernel64['event_ms']:.4f}) at chunk 64, plain {plain['ms']:.4f} ({plain['event_ms']:.4f}), "
         f"bound {bound_ms:.4f} ms ({bound_by}), library: none")
-    return {"ms": kernel_ms, "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by,
-            "library_ms": None, "chunk64_ms": kernel64_ms}
+    return {"ms": kernel["ms"], "event_ms": kernel["event_ms"], "plain_ms": plain["ms"],
+            "plain_event_ms": plain["event_ms"], "bound_ms": bound_ms, "bound_by": bound_by,
+            "library_ms": None, "library_event_ms": None, "chunk64_ms": kernel64["ms"]}
 
 
 def main() -> int:
@@ -632,6 +691,9 @@ def main() -> int:
             "launches": launches[name], "max_abs_err": checks[name]["max_abs_err"],
             "ms": t["ms"], "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
             "bound_by": t["bound_by"], "library_ms": t["library_ms"],
+            "event_ms": t["event_ms"], "plain_event_ms": t["plain_event_ms"],
+            "library_event_ms": t["library_event_ms"], "bound_share": t["bound_ms"] / t["ms"],
+            "ms_over_library_ms": t["ms"] / t["library_ms"] if t["library_ms"] else None,
         })
     for line in slices:
         log(json.dumps({"slice": {**line, "card": smi}}))

@@ -1,11 +1,14 @@
 """Build the port's CUDA sources with ``nvcc`` at first use and load them.
 
 Each ``csrc/<name>.cu`` compiles on its own into
-``build/repro_torch_kernels/lib<name>.so`` at the root of the checkout, for
-``sm_90a``, with a plain C interface that the wrappers bind with ``ctypes``.
-No source includes PyTorch's headers, so a build takes seconds, not minutes.
-A library newer than its source is reused; a new one is written under a
-temporary name and renamed, so concurrent builds never load a torn file.
+``build/repro_torch_kernels/lib<name>-<key>.so`` at the root of the checkout,
+for ``sm_90a``, with a plain C interface that the wrappers bind with
+``ctypes``.  No source includes PyTorch's headers, so a build takes seconds,
+not minutes.  ``<key>`` is a hash of the source, of every ``csrc/*.cuh`` and
+of the nvcc flags, so a library is reused exactly when it was built from the
+same text: checking out an older source finds (or builds) the older library,
+never a newer one.  A new library is written under a temporary name and
+renamed, so concurrent builds never load a torn file.
 
 The loaded libraries are cached for the life of the process.
 """
@@ -14,6 +17,7 @@ from __future__ import annotations
 
 import ctypes
 import functools
+import hashlib
 import os
 import shutil
 import subprocess
@@ -49,11 +53,20 @@ def find_nvcc() -> str:
     raise RuntimeError("nvcc not found (set CUDA_HOME or put nvcc on PATH)")
 
 
+def source_key(name: str) -> str:
+    """12 hex digits of a hash of ``csrc/<name>.cu``, every ``csrc/*.cuh`` and the nvcc flags."""
+    h = hashlib.sha256()
+    for path in [CSRC / f"{name}.cu", *sorted(CSRC.glob("*.cuh"))]:
+        h.update(path.name.encode() + b"\0" + path.read_bytes() + b"\0")
+    h.update("\0".join(NVCC_FLAGS).encode())
+    return h.hexdigest()[:12]
+
+
 def build(name: str) -> tuple[Path, str, float]:
     """Compile ``csrc/<name>.cu`` if needed: (library path, ptxas report, seconds)."""
     src = CSRC / f"{name}.cu"
-    lib = BUILD_DIR / f"lib{name}.so"
-    if lib.exists() and lib.stat().st_mtime >= src.stat().st_mtime:
+    lib = BUILD_DIR / f"lib{name}-{source_key(name)}.so"
+    if lib.exists():
         return lib, "", 0.0
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     fd, tmp = tempfile.mkstemp(prefix=f"lib{name}.", suffix=".so.tmp", dir=BUILD_DIR)

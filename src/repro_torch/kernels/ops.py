@@ -50,7 +50,8 @@ def flash_attention(
 
     ``sm_scale`` is D**-0.5.  Keys at or past Skv are masked; with ``causal``
     query row i sees keys at positions <= ``q_offset`` + i.  fp32 or bf16;
-    on the card D is a multiple of 8 up to 128.
+    on the card D is a multiple of 8 up to 128, and bf16 q/k/v start on a
+    16-byte boundary (the tensor-core kernel copies 16 bytes at a time).
     """
     if q.ndim != 4 or k.ndim != 4 or v.ndim != 4:
         raise ValueError(f"expected 4-d q/k/v, got {tuple(q.shape)}, {tuple(k.shape)}, {tuple(v.shape)}")
@@ -78,6 +79,8 @@ def flash_attention(
     if sq == 0 or skv == 0 or b == 0:
         raise ValueError(f"empty attention: q {tuple(q.shape)}, k {tuple(k.shape)}")
     o = torch.empty_like(q)
+    if q.dtype == torch.bfloat16 and any(t.data_ptr() % 16 for t in (q, k, v, o)):
+        raise ValueError("bf16 flash_attention needs q/k/v/o that start on a 16-byte boundary")
     lib = _flash_lib()
     with torch.cuda.device(q.device):
         err = lib.repro_flash_attention_fwd(

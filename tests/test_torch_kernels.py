@@ -12,6 +12,8 @@ differs) and bf16 2e-2 (outputs are rounded to bf16, whose step is 2^-8
 relative, and may round to neighbouring values).
 """
 
+import math
+
 import numpy as np
 import pytest
 
@@ -139,3 +141,53 @@ def test_wrapper_rejects_bad_inputs():
         ops.flash_attention(tq, tk[:, :, :1].expand(1, 16, 3, 8), tv[:, :, :1].expand(1, 16, 3, 8))
     with pytest.raises(ValueError):
         ops.flash_attention(tq, tk, tv, q_offset=-1)
+
+
+def _bf16_kernel_rounding(q, k, v, *, causal, block_k=64):
+    """The rounding points of the card's bf16 flash kernel, in plain PyTorch.
+
+    fp32 scores of the bf16 q and k, scaled by sm_scale * log2(e) after the
+    product (q is never rounded scaled); 64-key tiles with an online softmax
+    in base 2; P rounded to bf16 for P V while l sums the fp32 P.
+    """
+    b, sq, h, d = q.shape
+    skv, kvh = k.shape[1], k.shape[2]
+    g = h // kvh
+    scale_log2 = d**-0.5 * math.log2(math.e)
+    qg = q.float().reshape(b, sq, kvh, g, d)
+    m = torch.full((b, kvh, g, sq), float("-inf"))
+    l = torch.zeros((b, kvh, g, sq))
+    acc = torch.zeros((b, kvh, g, sq, d))
+    qpos = torch.arange(sq)
+    for k0 in range(0, skv, block_k):
+        kj, vj = k[:, k0 : k0 + block_k].float(), v[:, k0 : k0 + block_k].float()
+        s = torch.einsum("bqkgd,bskd->bkgqs", qg, kj)
+        if causal:
+            kpos = k0 + torch.arange(kj.shape[1])
+            s = s.masked_fill(kpos[None, :] > qpos[:, None], float("-inf"))
+        m_new = torch.maximum(m, s.amax(-1) * scale_log2)
+        m_use = torch.where(m_new == float("-inf"), torch.zeros_like(m_new), m_new)
+        p = torch.exp2(s * scale_log2 - m_use[..., None])
+        alpha = torch.exp2(m - m_use)
+        l = l * alpha + p.sum(-1)
+        acc = acc * alpha[..., None] + torch.einsum("bkgqs,bskd->bkgqd", p.bfloat16().float(), vj)
+        m = m_new
+    o = acc / torch.clamp(l[..., None], min=1e-37)
+    return o.permute(0, 3, 1, 2, 4).reshape(b, sq, h, d).bfloat16()
+
+
+@pytest.mark.parametrize(
+    "b,sq,h,kvh,d",
+    [
+        (2, 200, 6, 2, 128),  # causal GQA, D 128, Skv 200: a ragged last key tile
+        (1, 96, 4, 1, 40),  # causal MQA, D 40: lanes padded in the kernel
+    ],
+)
+def test_bf16_kernel_rounding_matches_reference_kernel(b, sq, h, kvh, d):
+    """The bf16 kernel's own rounding (unscaled q, P in bf16, l from fp32 P)
+    stays inside the reference's bf16 bar against its Pallas kernel."""
+    (jq, jk, jv), (tq, tk, tv) = _inputs(9, b, sq, sq, h, kvh, d, "bfloat16")
+    o_ref = jops.flash_attention(jq, jk, jv, causal=True)
+    o = _bf16_kernel_rounding(tq, tk, tv, causal=True)
+    assert o.dtype == torch.bfloat16 and o.shape == tq.shape
+    np.testing.assert_allclose(_np(o), _np(o_ref), **_tol("bfloat16"))
