@@ -16,8 +16,11 @@ Phases, each failing loudly (an exception or a non-zero exit):
    refusal of a misaligned bf16 input; the SSD scan, for y and the final state, at
    the three shapes of ``tests/test_kernels.py``, the mamba2-780m slice shape,
    a ragged S with a nonzero initial state, the reduced shape, a part-filled
-   tile of state rows, chunk 64 against chunk 128, and a B that is not
-   16-byte aligned;
+   tile of state rows, chunk 64 against chunk 128, one bf16 chunk (S below
+   the chunk), a long chain of 16 chunks from a unit-scale initial state
+   (batch 1, S 2,048), and a B that is not 16-byte aligned: bf16 cases run
+   the tensor-core split (``ssd_chunk_state``, ``ssd_state_pass``,
+   ``ssd_chunk_scan``), fp32 cases the CUDA-core kernels;
 4. the slices, each at full width and full depth with random bf16 weights
    from a seeded ``torch.Generator``, serving batch 4, prompt 512, gen 32
    through ``repro_torch.launch.serve.generate``:
@@ -45,10 +48,12 @@ Phases, each failing loudly (an exception or a non-zero exit):
    kernels); per kernel at its slice shape: the kernel beside its plain
    version, its bound and, where one PyTorch call computes the same function,
    that call (``scaled_dot_product_attention`` for flash, timed as a
-   yardstick only: the port never calls it; none for the SSD scan).  Each of
+   yardstick only: the port never calls it; none for the SSD scan); the SSD
+   scan also at batch 1 x 2,048 tokens, with its split among its kernels.  Each of
    these is timed by its device time per call (``device_ms``: the kernels'
    own time in torch.profiler, summed over the kernels of 20 calls, over 20;
-   the median of three profiler sessions),
+   the median of the three profiler sessions, among those that recorded the
+   most kernels),
    with the back-to-back CUDA-event time per call beside it (``event_ms``),
    which also counts the host whenever a call's dispatch outlasts its kernels;
 6. a ``{"slice": ...}`` line per model, a ``{"kernels": [...]}`` line (``ms``,
@@ -95,6 +100,7 @@ PREFILL_REL_L2 = 2e-2
 SSM_FLOOR_FACTOR = 1.25
 
 BATCH, PROMPT, GEN, SEED = 4, 512, 32, 0
+LONG_PROMPT = 2048  # one sequence of 16 scan chunks: the split's serial pass and parallelism
 KERNELS = ("flash_attention", "ssd_scan")
 SLICES = {  # arch -> (its kernel, reduced prompt length for the card-vs-CPU check)
     "qwen2-1.5b": ("flash_attention", 24),
@@ -124,36 +130,45 @@ def cuda_time_ms(fn, reps: int, warmup: int = 2) -> float:
 
 def device_ms(fn, calls: int = 20, warmup: int = 3, sessions: int = 3) -> dict:
     """Device time per call of ``fn``: ``ms``, ``kernels`` launched per call,
-    ``top`` [(kernel, ms per call)] heaviest first, and ``sessions_ms``.
+    ``top`` [(kernel, ms per call)] heaviest first, ``sessions_ms`` and
+    ``sessions_kernels``.
 
     The self device time of every kernel that ``calls`` back-to-back calls
     launch, from torch.profiler, summed and divided by ``calls``.  Unlike
     events around the calls it leaves out the host's dispatch and the gaps it
     makes.  Inputs stay warm in L2, as for ``cuda_time_ms``.  The profiler
-    has been seen to lose a session's kernels (a call timed below the card's
-    bound), so the session with the median time of ``sessions`` is kept.
+    has been seen to lose kernel records (a whole session's, and the first
+    call's of every session), which would time a call too fast; so each
+    session traces one more call first and keeps only the ``calls`` after it
+    (the profiler's warm-up step), and only the sessions that recorded the
+    most kernels are kept, of those the one with the median time.
     """
     import torch
-    from torch.profiler import ProfilerActivity, profile
+    from torch.profiler import ProfilerActivity, profile, schedule
 
     for _ in range(warmup):
         fn()
     torch.cuda.synchronize()
     runs = []
     for _ in range(sessions):
-        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-            for _ in range(calls):
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+                     schedule=schedule(wait=0, warmup=1, active=calls, repeat=1)) as prof:
+            for i in range(1 + calls):
                 fn()
-            torch.cuda.synchronize()
-        kernels = [e for e in prof.key_averages() if e.device_type == torch.autograd.DeviceType.CUDA]
+                if i == calls:
+                    torch.cuda.synchronize()
+                prof.step()
+        kernels = [e for e in prof.key_averages() if e.device_type == torch.autograd.DeviceType.CUDA
+                   and not e.key.startswith("ProfilerStep")]  # the schedule's step range, not a kernel
         total_us = sum(e.self_device_time_total for e in kernels)
         top = sorted(((e.key, e.self_device_time_total / 1e3 / calls) for e in kernels), key=lambda t: -t[1])
         runs.append((total_us / 1e3 / calls, sum(e.count for e in kernels) / calls, top))
-    runs.sort(key=lambda r: r[0])
-    ms, kernels, top = runs[len(runs) // 2]
+    full = sorted((r for r in runs if r[1] == max(q[1] for q in runs)), key=lambda r: r[0])
+    ms, kernels, top = full[len(full) // 2]
     if ms <= 0:
         raise RuntimeError("torch.profiler recorded no device time")
-    return {"ms": ms, "kernels": kernels, "top": top, "sessions_ms": [r[0] for r in runs]}
+    return {"ms": ms, "kernels": kernels, "top": top, "sessions_ms": [r[0] for r in runs],
+            "sessions_kernels": [r[1] for r in runs]}
 
 
 def timed(fn, calls: int = 20) -> dict:
@@ -293,6 +308,8 @@ def check_ssd() -> dict:
         ("part tile p24 n16", 1, 300, 4, 24, 16, f32, True, 64, 64),
         ("chunk 64 vs 128 f32", 2, 300, 8, 64, 128, f32, True, 64, 128),
         ("chunk 64 vs 128 slice", BATCH, PROMPT, 48, 64, 128, bf16, True, 64, 128),
+        ("one chunk bf16", 2, 100, 8, 64, 128, bf16, True, 128, 128),
+        ("long chain s2048", 1, LONG_PROMPT, 48, 64, 128, bf16, True, 128, 128),
     ]
     slice_err = None
     for name, b, s, h, p, n, dt, state, chunk, plain_chunk in cases:
@@ -543,7 +560,7 @@ def serve_slice(arch: str) -> tuple[dict, int]:
         for name, fn, wall_ms in (("prefill", prefill, prefill_ms), ("decode step", decode_step, decode_ms)):
             # one warm call; the profiler slows the host, so the idle share is
             # taken against the unprofiled CUDA-event time of the same call
-            prof = device_ms(fn, calls=1, warmup=1, sessions=1)
+            prof = device_ms(fn, calls=1, warmup=1)
             busy_ms, n_kernels, top = prof["ms"], prof["kernels"], prof["top"]
             breakdown[name] = {"wall_ms": wall_ms, "device_busy_ms": busy_ms,
                                "idle_share": 1.0 - busy_ms / wall_ms, "kernels": round(n_kernels)}
@@ -600,7 +617,8 @@ def time_flash() -> dict:
 
 
 def time_ssd() -> dict:
-    """The SSD-scan kernel at mamba2-780m's prefill shape, chunk 128 and 64: kernel, plain, bound.
+    """The SSD-scan kernel at mamba2-780m's prefill shape, chunk 128 and 64: kernel, plain, bound;
+    and at batch 1 x ``LONG_PROMPT`` tokens.  Each with its device time split among its kernels.
 
     No single PyTorch call computes the SSD scan, so there is no library time.
     """
@@ -610,19 +628,34 @@ def time_ssd() -> dict:
 
     cfg = slice_config("mamba2-780m")
     gen = torch.Generator(device="cuda").manual_seed(SEED + 4)
-    x, la, bm, cm, _ = ssd_inputs(gen, BATCH, PROMPT, cfg.ssm_heads, cfg.ssm_headdim, cfg.ssm_state,
-                                  torch.bfloat16, state=False)
-    s0 = torch.zeros((BATCH, cfg.ssm_heads, cfg.ssm_headdim, cfg.ssm_state), device="cuda")
-    chunk = cfg.ssm_chunk
+    h, p, n, chunk = cfg.ssm_heads, cfg.ssm_headdim, cfg.ssm_state, cfg.ssm_chunk
+    x, la, bm, cm, _ = ssd_inputs(gen, BATCH, PROMPT, h, p, n, torch.bfloat16, state=False)
+    s0 = torch.zeros((BATCH, h, p, n), device="cuda")
     kernel = timed(lambda: ops.ssd_scan(x, la, bm, cm, chunk=chunk, state0=s0))
     kernel64 = timed(lambda: ops.ssd_scan(x, la, bm, cm, chunk=64, state0=s0))
     plain = timed(lambda: ref.ssd_scan_ref(x, la, bm, cm, chunk=chunk, state0=s0), calls=10)
     bound_ms, bound_by = ssd_bound_ms(x, la, bm, s0, chunk)
-    log(f"ssd_scan x{tuple(x.shape)} n={cfg.ssm_state} bf16, state0 given, device ms per call "
+    xl, lal, bml, cml, s0l = ssd_inputs(gen, 1, LONG_PROMPT, h, p, n, torch.bfloat16, state=True)
+    long = timed(lambda: ops.ssd_scan(xl, lal, bml, cml, chunk=chunk, state0=s0l))
+    long_bound_ms, long_bound_by = ssd_bound_ms(xl, lal, bml, s0l, chunk)
+
+    def split(t):
+        return "; ".join(f"{k[:60]} {ms:.4f}" for k, ms in t["top"])
+
+    log(f"ssd_scan x{tuple(x.shape)} n={n} bf16, state0 given, device ms per call "
         f"(CUDA-event ms per call): kernel {kernel['ms']:.4f} ({kernel['event_ms']:.4f}; "
         f"{kernel['kernels']:g} kernels a call) at chunk {chunk}, {kernel64['ms']:.4f} "
         f"({kernel64['event_ms']:.4f}) at chunk 64, plain {plain['ms']:.4f} ({plain['event_ms']:.4f}), "
         f"bound {bound_ms:.4f} ms ({bound_by}), library: none")
+    log(f"ssd_scan x{tuple(xl.shape)} n={n} bf16, state0 given, chunk {chunk}: kernel {long['ms']:.4f} "
+        f"device ms per call ({long['event_ms']:.4f} events; {long['kernels']:g} kernels a call), "
+        f"bound {long_bound_ms:.4f} ms ({long_bound_by}), bound share {long_bound_ms / long['ms']:.3f}")
+    log("ssd_scan device ms per call (kernels a call) in each profiler session: " + "; ".join(
+        f"{name} " + ", ".join(f"{m:.4f} ({k:g})" for m, k in zip(t["sessions_ms"], t["sessions_kernels"]))
+        for name, t in (("chunk 128", kernel), ("chunk 64", kernel64), ("long", long))))
+    log(f"ssd_scan device ms per call by kernel, x{tuple(x.shape)} chunk {chunk}: {split(kernel)}")
+    log(f"ssd_scan device ms per call by kernel, x{tuple(x.shape)} chunk 64: {split(kernel64)}")
+    log(f"ssd_scan device ms per call by kernel, x{tuple(xl.shape)} chunk {chunk}: {split(long)}")
     return {"ms": kernel["ms"], "event_ms": kernel["event_ms"], "plain_ms": plain["ms"],
             "plain_event_ms": plain["event_ms"], "bound_ms": bound_ms, "bound_by": bound_by,
             "library_ms": None, "library_event_ms": None, "chunk64_ms": kernel64["ms"]}

@@ -13,57 +13,88 @@
 //
 // The exponential is taken only on and below the diagonal (above it the
 // difference is positive and may overflow; the Pallas kernel computes it
-// everywhere and selects).  The fp32 (P, N) state carries across chunks.
+// everywhere and selects).
 //
 // Layout: x/y (B, S, H, P) and B/C (B, S, N) in fp32 or bf16 (one dtype),
 // log_da (B, S, H) fp32, state0/state_out (B, H, P, N) fp32, all contiguous.
 // B and C form one group shared by all heads.  P and N are multiples of 8 up
-// to 128; Q (the chunk) is 64 or 128.  Every product runs in true fp32 on the
-// CUDA cores, bf16 inputs widened on load, so fp32 inputs meet the
-// reference's 2e-5 bar.  A ragged S is masked in the kernel, with the
-// semantics of zero padding: steps past S load x, B, C and log_da as 0 (so
-// they add nothing and keep the state), and rows past S write nothing.
+// to 128; Q (the chunk) is 64 or 128.  A ragged S is masked in the kernels,
+// with the semantics of zero padding: steps past S load x, B, C and log_da
+// as 0 (so they add nothing and keep the state), and rows past S write
+// nothing.  The TPU's grid walks the chunks in order with the state in VMEM
+// scratch; blocks on the card run in no order, so each path below makes the
+// chunk order explicit.
 //
-// Design.  The TPU's grid walks the chunks in order and keeps the state in
-// VMEM scratch; blocks on the card run in no order, so one block owns one
-// (batch row, head, tile of 32 state rows) and loops over the chunks itself,
-// with the state tile in shared memory.  State row p depends on x[:, p]
-// alone, so tiles of P are independent.  B and C form one group, so C B^T is
-// the same for every head and tile of a batch row: a first kernel, ssd_cb,
-// computes its lower triangle once per (batch row, chunk) into fp32 scratch
-// (each thread an 8x8 tile, Q = 128), and the scan reads it from L2.  Per
-// chunk the scan block loads x, B^T, C^T (fp32) and log_da into shared
-// memory, takes a_cum with a warp scan, weights C B^T by L into W^T, then
-// computes y (each thread 2 rows x 4 columns), then the new state (each warp
-// 8 state columns n, each lane one row p).  At Q = 128, N = 128 this is
-// 225.5 KB of shared memory, so one block of 16 warps per SM.
+// bf16: Mamba2's chunk-parallel split (Dao & Gu, arXiv:2405.21060, section
+// 6-7; mamba_ssm's chunk_state -> state_passing -> chunk_scan), with every
+// product on the tensor cores (mma.sync m16n8k16, bf16 in, fp32 sums) and
+// every tile arriving by cp.async (zero-filled past S, P and N) into
+// XOR-swizzled bf16 rows that ldmatrix reads without bank conflicts:
 //
-// Bound on the H100 (3.35 TB/s HBM, 989 TFLOP/s bf16 dense, 67 TFLOP/s fp32
-// without tensor cores): at mamba2-780m's serving prefill (x (4,512,48,64)
-// bf16, B/C (4,512,128) bf16, state0 and state_out (4,48,64,128) fp32) the
-// inputs and outputs cross HBM once in 39.2 MB (11.7 us), while the products
-// need 5.7 GFLOP over the causal triangle (5.7 us at the bf16 tensor-core
-// peak): the kernel is bound by memory, about 0.012 ms (chip_smoke.py
-// computes both from the run's shapes).  This version takes its products in
-// fp32 on the CUDA cores, where the same FLOPs need 0.085 ms even at peak,
-// so it is bound by its instruction issue and far from the memory bound; the
-// products for y and for the new state take most of a block's time.  B and C
-// are read 8 neighbouring n at a time, one 16-byte vector per thread where
-// aligned: a scalar read per lane touches 32 lines per instruction.
-// Tensor-core products (mma.sync, then wgmma) on bf16 tiles, less shared
-// memory per block, and Mamba2's chunk-parallel split (local states, then a
-// state-passing pass) that keeps more blocks in flight are the later work
-// that closes the gap.
+//   1. ssd_chunk_state, one block of 4 warps per (head, chunk, batch row):
+//      S_loc[c] = x^T (B * dout), dout_j = exp(a_last - a_cum_j), fp32
+//      (P, N) scratch, and exp(a_last) of the chunk.  Q / 64 more blocks per
+//      (chunk, batch row) compute G = C B^T, which every head shares (B and
+//      C form one group), once, in fp32, on and below the diagonal.
+//   2. ssd_state_pass, the only serial pass and an elementwise one, one block
+//      per (slice of P*N, head, batch row): S_in[0] = state0 (or 0),
+//      S_in[c+1] = exp(a_last_c) S_in[c] + S_loc[c] in fp32; S_in is stored
+//      in bf16, the last state in fp32 as state_out.
+//   3. ssd_chunk_scan, one block of 8 warps per (head, chunk, batch row):
+//      y = (L * G) x + diag(exp(a_cum)) C S_in[c]^T.  Each warp reads its
+//      rows of G from L2 straight into registers in the accumulator layout,
+//      weights them by exp(a_cum_i - a_cum_j) on and below the diagonal only,
+//      and skips 16-step groups past its rows.
 //
-// One call of repro_ssd_scan_fwd launches ssd_cb, then the scan; the
-// wrapper counts it as one launch.
+// Rounding points, all others fp32: B * dout rounded to bf16 for S_loc; S_in
+// rounded to bf16 as an operand of C S_in^T (mamba_ssm stores it in C's
+// dtype); W = G * L fed as a bf16 pair hi + lo = W - hi, two products, so W
+// keeps about 16 bits.  The state carried between chunks is fp32 throughout,
+// and the two terms of y add in fp32 and round to bf16 once.  W rounded once
+// to bf16 (as the reference's XLA twin does, src/repro/models/ssm.py:84)
+// passes each call's bar, but carries mamba2-780m's 48-layer prefill past
+// chip_smoke.py's end-to-end gate; of the three roundings only W's moves it.
+//
+// fp32: the first version of this kernel, unchanged, so fp32 inputs meet
+// the reference's 2e-5 bar: true fp32 products on the CUDA cores.  A
+// pre-pass ssd_cb computes C B^T once per (batch row, chunk) into fp32
+// scratch; then one ssd_fwd block per (batch row, head, tile of 32 state
+// rows) walks the chunks in order with the state in shared memory.  No fp32
+// input lies on the serving path.
+//
+// Bound on the H100 (3.35 TB/s HBM, 989 TFLOP/s bf16 dense): at mamba2-780m's
+// serving prefill (x (4,512,48,64) bf16, B/C (4,512,128) bf16, state0 and
+// state_out (4,48,64,128) fp32) the inputs and outputs cross HBM once in
+// 39.2 MB (11.7 us), while the products need 5.7 GFLOP over the causal
+// triangle (5.7 us at the bf16 tensor-core peak): the function is bound by
+// bytes, about 0.012 ms (chip_smoke.py computes both from the run's shapes).
+// The split moves more than that: x is read twice, S_loc crosses in fp32
+// twice and S_in in bf16 twice, about 126 MB in all, part of which stays in
+// the 50 MB L2 between the kernels; its products, with W's second product,
+// are about 8 GFLOP at mma.sync rates.  So the design stays bound by memory,
+// and wgmma, which pays where products bound a kernel, is not needed here.
+// What limits it now: within a block, loads, products and stores follow one
+// another, and each grid is only 1.5 to 3 waves of resident blocks, so the
+// phases overlap little across blocks (in ssd_chunk_state the loads, the
+// products and the fp32 S_loc store cost about what they cost alone, added
+// up); ssd_state_pass runs near the memory rate for its bytes.  Fewer bytes
+// (S_loc in bf16, or phases 1 and 2 fused) or a pipeline across work items
+// that keeps as many warps resident is the next step.  Shared memory per
+// block at P = 64, N = 128, Q = 128: phase 1 48.5 KB (4 blocks an SM),
+// phase 3 64.5 KB (2 blocks of 8 warps an SM).
+//
+// One call of repro_ssd_scan_fwd launches the three bf16 kernels (or
+// ssd_cb, then ssd_fwd, for fp32); the wrapper counts it as one launch.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stddef.h>
+#include <stdint.h>
 
 namespace {
+
+// ------------------------------------------------------------ fp32 kernels
 
 constexpr int PT = 32;        // state rows (columns p of x) per scan block
 constexpr int NT = 256;       // threads per ssd_cb block
@@ -71,9 +102,7 @@ constexpr int NT_SCAN = 512;  // threads per scan block: 16 warps to hide latenc
 constexpr int NMAX = 128;     // largest state width N
 
 __device__ __forceinline__ float to_f32(float x) { return x; }
-__device__ __forceinline__ float to_f32(__nv_bfloat16 x) { return __bfloat162float(x); }
 __device__ __forceinline__ void store_out(float* p, float x) { *p = x; }
-__device__ __forceinline__ void store_out(__nv_bfloat16* p, float x) { *p = __float2bfloat16_rn(x); }
 
 template <int Q>
 size_t scan_smem_bytes(int n) {
@@ -85,24 +114,8 @@ size_t scan_smem_bytes(int n) {
 template <int Q>
 size_t cb_smem_bytes(int n) { return sizeof(float) * (size_t)2 * n * Q; }  // C^T, B^T
 
-// 8 neighbouring elements widened to fp32: one 16-byte load for bf16, two
-// for fp32, where p is 16-byte aligned; 8 scalar loads otherwise.
-__device__ __forceinline__ void load8(const __nv_bfloat16* p, bool vec, float* out) {
-  if (vec) {
-    const uint4 u = *reinterpret_cast<const uint4*>(p);
-    const __nv_bfloat162* h2 = reinterpret_cast<const __nv_bfloat162*>(&u);
-#pragma unroll
-    for (int e = 0; e < 4; ++e) {
-      const float2 f = __bfloat1622float2(h2[e]);
-      out[2 * e] = f.x;
-      out[2 * e + 1] = f.y;
-    }
-  } else {
-#pragma unroll
-    for (int e = 0; e < 8; ++e) out[e] = __bfloat162float(p[e]);
-  }
-}
-
+// 8 neighbouring fp32 elements: two 16-byte loads where p is 16-byte
+// aligned, 8 scalar loads otherwise.
 __device__ __forceinline__ void load8(const float* p, bool vec, float* out) {
   if (vec) {
     const float4 a = *reinterpret_cast<const float4*>(p);
@@ -402,22 +415,650 @@ cudaError_t dispatch(const void* x, const float* la, const void* bm, const void*
   }
 }
 
+
+// ------------------------------------------------------------ bf16 kernels
+
+using bf16 = __nv_bfloat16;
+
+constexpr int TNT = 128;    // threads of ssd_chunk_state: 4 warps
+constexpr int TROWS = 64;   // rows of a 64 x 64 tile of C B^T
+constexpr int SP_NT = 256;  // threads of ssd_state_pass
+constexpr int SP_EL = 4;    // state elements per ssd_state_pass thread
+constexpr float LOG2E = 1.4426950408889634f;
+
+// Shared-memory rows of W bf16 values (W = 64 or 128), cut into 16-byte
+// chunks.  Chunk c of row r sits at chunk c ^ (r & 7) of its group of 8, so
+// the 8 rows r0..r0+7 (r0 % 8 == 0) of one logical chunk land in 8 distinct
+// 16-byte bank groups: every ldmatrix phase is conflict-free.
+template <int W>
+struct Rows {
+  static constexpr int NCH = W / 8;
+  static constexpr int BYTES = W * 2;
+  __device__ static __forceinline__ uint32_t off(int r, int c) {
+    return (uint32_t)(r * BYTES + ((c ^ (r & 7)) * 16));
+  }
+};
+
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+// 16 bytes global -> shared; with valid == false nothing is read and the 16
+// bytes are zero-filled (source size 0).
+__device__ __forceinline__ void cp_async16(uint32_t dst, const void* src, bool valid) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(dst), "l"(src),
+               "r"(valid ? 16 : 0));
+}
+__device__ __forceinline__ void cp_async_commit() { asm volatile("cp.async.commit_group;\n" ::); }
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
+// ldmatrix .x4: lanes 8i .. 8i+7 give the row addresses of 8x8 matrix i;
+// lane L receives in r[i] the elements (row L/4, cols 2(L%4), 2(L%4)+1) of
+// matrix i, or with .trans (rows 2(L%4), 2(L%4)+1; col L/4).
+__device__ __forceinline__ void ldmatrix_x4(uint32_t (&r)[4], uint32_t addr) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(addr));
+}
+__device__ __forceinline__ void ldmatrix_x4_trans(uint32_t (&r)[4], uint32_t addr) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0,%1,%2,%3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(addr));
+}
+
+// d += a * b, m16n8k16, bf16 in, fp32 accumulate.  With g = lane / 4 and
+// t = lane % 4, the fragments hold:
+//   a[0] (row g,   k 2t..2t+1)   a[1] (row g+8, k 2t..2t+1)
+//   a[2] (row g,   k 2t+8..+9)   a[3] (row g+8, k 2t+8..+9)
+//   b0   (k 2t..2t+1,   col g)   b1   (k 2t+8..+9, col g)
+//   d[0], d[1] (row g, cols 2t, 2t+1)   d[2], d[3] (row g+8, cols 2t, 2t+1)
+__device__ __forceinline__ void mma_bf16(float (&d)[4], const uint32_t (&a)[4], uint32_t b0,
+                                         uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 {%0,%1,%2,%3}, {%4,%5,%6,%7}, "
+      "{%8,%9}, {%0,%1,%2,%3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// 2^x in one MUFU.EX2; results below 2^-126 flush to 0.
+__device__ __forceinline__ float exp2_ftz(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
+  return y;
+}
+
+// Two fp32 values as a bf16 pair, lo in the low half (the lower column).
+__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
+  const __nv_bfloat162 p = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<const uint32_t*>(&p);
+}
+
+// (a, b) as a bf16 pair hi plus a bf16 pair lo = (a, b) - hi, which
+// together carry about 16 bits of each value's mantissa.
+__device__ __forceinline__ void split_bf16(float a, float b, uint32_t& hi, uint32_t& lo) {
+  const __nv_bfloat162 h = __floats2bfloat162_rn(a, b);
+  const float2 f = __bfloat1622float2(h);
+  hi = *reinterpret_cast<const uint32_t*>(&h);
+  lo = pack_bf16(a - f.x, b - f.y);
+}
+
+// Rows 0 .. rows-1 of a bf16 slab (row stride `stride` elements) into a
+// swizzled tile; rows at or past `rows_valid` and chunks at or past
+// `chunks_valid` are zero-filled.  With `vec` (the slab is 16-byte aligned)
+// each chunk is one cp.async; otherwise a chunk is read as 8 scalars and
+// stored at once, so a misaligned input costs speed, not correctness.
+template <int W>
+__device__ __forceinline__ void load_rows(uint32_t dst, const bf16* src, size_t stride, int rows,
+                                          int rows_valid, int chunks_valid, bool vec) {
+  using L = Rows<W>;
+  for (int i = threadIdx.x; i < rows * L::NCH; i += blockDim.x) {
+    const int r = i / L::NCH, c = i % L::NCH;
+    const bool ok = r < rows_valid && c < chunks_valid;
+    const uint32_t d = dst + L::off(r, c);
+    if (vec || !ok) {
+      cp_async16(d, ok ? src + (size_t)r * stride + c * 8 : src, ok);
+    } else {
+      const unsigned short* e = reinterpret_cast<const unsigned short*>(src + (size_t)r * stride + c * 8);
+      uint32_t u[4];
+#pragma unroll
+      for (int k = 0; k < 4; ++k) u[k] = (uint32_t)e[2 * k] | ((uint32_t)e[2 * k + 1] << 16);
+      asm volatile("st.shared.v4.b32 [%0], {%1,%2,%3,%4};\n" ::"r"(d), "r"(u[0]), "r"(u[1]),
+                   "r"(u[2]), "r"(u[3]));
+    }
+  }
+}
+
+// a_cum * log2(e) of the chunk's Q steps (log_da 0 past s) into ac2[Q], by
+// warp 0: E steps a lane, then a warp scan.  Returns a_last * log2(e) to
+// warp 0's lanes.
+template <int Q>
+__device__ __forceinline__ float chunk_cumsum(const float* __restrict__ lab, size_t step, int t0,
+                                              int s, float* ac2) {
+  constexpr int E = Q / 32;
+  const int lane = threadIdx.x & 31;
+  float v[E];
+  float run = 0.f;
+#pragma unroll
+  for (int e = 0; e < E; ++e) {
+    const int t = t0 + lane * E + e;
+    run += t < s ? lab[(size_t)t * step] : 0.f;
+    v[e] = run;
+  }
+  float incl = run;
+#pragma unroll
+  for (int o = 1; o < 32; o <<= 1) {
+    const float u = __shfl_up_sync(0xffffffffu, incl, o);
+    if (lane >= o) incl += u;
+  }
+  const float off = incl - run;
+#pragma unroll
+  for (int e = 0; e < E; ++e) ac2[lane * E + e] = (v[e] + off) * LOG2E;
+  return __shfl_sync(0xffffffffu, incl, 31) * LOG2E;
+}
+
+// G = C B^T of one (batch row, chunk), fp32, which every head shares (B and
+// C form one group): computed once on the tensor cores, on and below the
+// diagonal, in 64 x 64 tiles, and read by ssd_chunk_scan straight into
+// registers.  One block per (row tile it, chunk c, batch row b), run as extra
+// blocks of ssd_chunk_state's launch; warp w owns rows 16w..16w+15 of the
+// tile.  C comes by plain ldmatrix as the A operand, B ([step][n], i.e. B^T
+// column-major) by plain ldmatrix as the B operand; on the diagonal tile a
+// warp skips 16-step groups past its rows, which the scan never reads.
+template <int Q, int NW>
+__device__ __forceinline__ void chunk_cb(const bf16* __restrict__ bm, const bf16* __restrict__ cm,
+                                         float* __restrict__ gm, int s, int n, int vec, int it,
+                                         int c, int b, int nc, unsigned char* smem) {
+  using LN = Rows<NW>;
+  constexpr int KN = NW / 16;  // k16 steps over N
+  const uint32_t s_c = smem_u32(smem);          // [64][NW]  C rows of the tile
+  const uint32_t s_b = s_c + TROWS * LN::BYTES;  // [Q][NW]   B
+  const int t0 = c * Q, i0 = it * TROWS;
+  if (t0 + i0 >= s) return;  // every row of this tile lies past s
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int g = lane >> 2, t = lane & 3;
+  load_rows<NW>(s_c, cm + ((size_t)b * s + t0 + i0) * n, n, TROWS, s - t0 - i0, n / 8, vec);
+  load_rows<NW>(s_b, bm + ((size_t)b * s + t0) * n, n, i0 + TROWS, s - t0, n / 8, vec);
+  cp_async_commit();
+  cp_async_wait<0>();
+  __syncthreads();
+
+  uint32_t cf[KN][4];
+#pragma unroll
+  for (int kk = 0; kk < KN; ++kk)
+    ldmatrix_x4(cf[kk], s_c + LN::off(16 * warp + (lane & 15), 2 * kk + (lane >> 4)));
+  float* gw = gm + ((size_t)b * nc + c) * Q * Q + (size_t)(i0 + 16 * warp) * Q;
+  for (int jt = 0; jt <= it; ++jt) {
+    const bool diag = jt == it;
+    // Matrices (steps 16sb+0-7, chunk 2kk), (16sb+0-7, 2kk+1), (16sb+8-15,
+    // 2kk), (16sb+8-15, 2kk+1) are b0, b1 of step tiles 2sb, 2sb+1.
+    float sc[TROWS / 8][4];
+#pragma unroll
+    for (int st = 0; st < TROWS / 8; ++st)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) sc[st][e] = 0.f;
+#pragma unroll
+    for (int kk = 0; kk < KN; ++kk)
+#pragma unroll
+      for (int sb = 0; sb < TROWS / 16; ++sb) {
+        if (diag && sb > warp) continue;
+        uint32_t bk[4];
+        ldmatrix_x4(bk, s_b + LN::off(jt * TROWS + 16 * sb + (lane & 7) + ((lane >> 4) << 3),
+                                      2 * kk + ((lane >> 3) & 1)));
+        mma_bf16(sc[2 * sb], cf[kk], bk[0], bk[1]);
+        mma_bf16(sc[2 * sb + 1], cf[kk], bk[2], bk[3]);
+      }
+    // sc[st][e] is row g + 8 (e / 2) of the warp, step 64 jt + 8 st + 2t + (e % 2)
+#pragma unroll
+    for (int st = 0; st < TROWS / 8; ++st)
+#pragma unroll
+      for (int r = 0; r < 2; ++r)
+        if (!(diag && (st >> 1) > warp))
+          *reinterpret_cast<float2*>(&gw[(size_t)(g + 8 * r) * Q + jt * TROWS + 8 * st + 2 * t]) =
+              make_float2(sc[st][2 * r], sc[st][2 * r + 1]);
+  }
+}
+
+// Phase 1.  S_loc[c] = X^T (B * dout), dout_j = exp(a_last - a_cum_j), the
+// chunk's own contribution to the state, in fp32 (P, N); and decay[c] =
+// exp(a_last).  One block per (head, chunk, batch row), and Q / 64 more per
+// (chunk, batch row) for G = C B^T (chunk_cb above); warp w owns the
+// 16-row tiles w, w + 4, .. of P and every column n.  B * dout is rounded to
+// bf16 in shared memory; X^T comes by ldmatrix .trans from X's [step][p]
+// rows, B by ldmatrix .trans from its [step][n] rows.
+template <int Q, int PW, int NW>
+__global__ void __launch_bounds__(TNT, 2) ssd_chunk_state(
+    const bf16* __restrict__ x, const float* __restrict__ la, const bf16* __restrict__ bm,
+    const bf16* __restrict__ cm, float* __restrict__ gm, float* __restrict__ s_loc,
+    float* __restrict__ decay, int s, int h, int p, int n, int vec) {
+  using LX = Rows<PW>;
+  using LB = Rows<NW>;
+  constexpr int MT = PW / 64;  // 16-row tiles of P per warp
+  constexpr int NN = NW / 8;   // n8 tiles of N
+  extern __shared__ __align__(128) unsigned char smem[];
+  const uint32_t s_x = smem_u32(smem);
+  const uint32_t s_b = s_x + Q * LX::BYTES;
+  float* ac2 = reinterpret_cast<float*>(smem + Q * (LX::BYTES + LB::BYTES));
+
+  const int hh = blockIdx.x, c = blockIdx.y, b = blockIdx.z;
+  const int nc = gridDim.y;
+  if (hh >= h) {
+    chunk_cb<Q, NW>(bm, cm, gm, s, n, vec, hh - h, c, b, nc, smem);
+    return;
+  }
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int t0 = c * Q;
+  const size_t row = (size_t)h * p;
+  load_rows<PW>(s_x, x + ((size_t)b * s + t0) * row + (size_t)hh * p, row, Q, s - t0, p / 8, vec);
+  load_rows<NW>(s_b, bm + ((size_t)b * s + t0) * n, n, Q, s - t0, n / 8, vec);
+  cp_async_commit();
+  if (warp == 0) {
+    const float last = chunk_cumsum<Q>(la + (size_t)b * s * h + hh, h, t0, s, ac2);
+    __syncwarp();
+    for (int j = lane; j < Q; j += 32) ac2[j] = exp2_ftz(last - ac2[j]);  // now dout_j
+    if (lane == 0) decay[((size_t)b * h + hh) * nc + c] = exp2_ftz(last);
+  }
+  cp_async_wait<0>();
+  __syncthreads();
+
+  // B * dout, rounded to bf16, in place
+  for (int i = threadIdx.x; i < Q * LB::NCH; i += TNT) {
+    const int j = i / LB::NCH;
+    uint4* q4 = reinterpret_cast<uint4*>(smem + Q * LX::BYTES + LB::off(j, i % LB::NCH));
+    uint4 u = *q4;
+    uint32_t* w = reinterpret_cast<uint32_t*>(&u);
+    const float d = ac2[j];
+#pragma unroll
+    for (int k = 0; k < 4; ++k) {
+      const float2 f = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&w[k]));
+      w[k] = pack_bf16(f.x * d, f.y * d);
+    }
+    *q4 = u;
+  }
+  __syncthreads();
+
+  float acc[MT][NN][4];
+#pragma unroll
+  for (int mi = 0; mi < MT; ++mi)
+#pragma unroll
+    for (int nt = 0; nt < NN; ++nt)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) acc[mi][nt][e] = 0.f;
+
+#pragma unroll
+  for (int kk = 0; kk < Q / 16; ++kk) {
+    // A = X^T, rows p, k = steps 16kk..: matrices (steps +0-7, p chunk 2mt),
+    // (steps +0-7, 2mt+1), (steps +8-15, 2mt), (steps +8-15, 2mt+1) are
+    // a[0..3] under .trans.
+    uint32_t a[MT][4];
+#pragma unroll
+    for (int mi = 0; mi < MT; ++mi)
+      ldmatrix_x4_trans(a[mi], s_x + LX::off(16 * kk + (lane & 7) + ((lane >> 4) << 3),
+                                             2 * (warp + 4 * mi) + ((lane >> 3) & 1)));
+    // B = B * dout, [step][n]: matrices (steps +0-7, chunk 2dn), (+8-15, 2dn),
+    // (+0-7, 2dn+1), (+8-15, 2dn+1) are b0, b1 of n-tiles 2dn and 2dn+1.
+#pragma unroll
+    for (int dn = 0; dn < NN / 2; ++dn) {
+      uint32_t bv[4];
+      ldmatrix_x4_trans(bv, s_b + LB::off(16 * kk + (lane & 7) + (((lane >> 3) & 1) << 3),
+                                          2 * dn + (lane >> 4)));
+#pragma unroll
+      for (int mi = 0; mi < MT; ++mi) {
+        mma_bf16(acc[mi][2 * dn], a[mi], bv[0], bv[1]);
+        mma_bf16(acc[mi][2 * dn + 1], a[mi], bv[2], bv[3]);
+      }
+    }
+  }
+
+  const int g = lane >> 2, t = lane & 3;
+  float* out = s_loc + (((size_t)b * nc + c) * h + hh) * p * n;
+#pragma unroll
+  for (int mi = 0; mi < MT; ++mi)
+#pragma unroll
+    for (int nt = 0; nt < NN; ++nt)
+#pragma unroll
+      for (int r = 0; r < 2; ++r) {
+        const int pr = 16 * (warp + 4 * mi) + g + 8 * r, col = 8 * nt + 2 * t;
+        if (pr < p && col < n)
+          *reinterpret_cast<float2*>(&out[(size_t)pr * n + col]) =
+              make_float2(acc[mi][nt][2 * r], acc[mi][nt][2 * r + 1]);
+      }
+}
+
+// Phase 2, the only serial pass: S_in[0] = state0 (or 0),
+// S_in[c+1] = exp(a_last_c) S_in[c] + S_loc[c], elementwise in fp32 over the
+// chunks; S_in is stored in bf16 for phase 3, the last state in fp32.  One
+// block per (slice of P*N, head, batch row); each thread carries SP_EL
+// elements, SP_NT apart, so every load and store is coalesced.
+__global__ void __launch_bounds__(SP_NT) ssd_state_pass(
+    const float* __restrict__ s_loc, const float* __restrict__ decay,
+    const float* __restrict__ state0, bf16* __restrict__ s_in, float* __restrict__ state_out,
+    int h, int pn, int nc) {
+  const int hh = blockIdx.y, b = blockIdx.z;
+  const size_t bh = (size_t)b * h + hh;
+  const int e0 = blockIdx.x * SP_NT * SP_EL + threadIdx.x;
+  float st[SP_EL];
+#pragma unroll
+  for (int k = 0; k < SP_EL; ++k) {
+    const int e = e0 + k * SP_NT;
+    st[k] = state0 != nullptr && e < pn ? state0[bh * pn + e] : 0.f;
+  }
+#pragma unroll 4
+  for (int c = 0; c < nc; ++c) {
+    const size_t base = (((size_t)b * nc + c) * h + hh) * pn;
+    const float d = decay[bh * nc + c];
+#pragma unroll
+    for (int k = 0; k < SP_EL; ++k) {
+      const int e = e0 + k * SP_NT;
+      if (e < pn) {
+        s_in[base + e] = __float2bfloat16_rn(st[k]);
+        st[k] = fmaf(d, st[k], s_loc[base + e]);
+      }
+    }
+  }
+#pragma unroll
+  for (int k = 0; k < SP_EL; ++k) {
+    const int e = e0 + k * SP_NT;
+    if (e < pn) state_out[bh * pn + e] = st[k];
+  }
+}
+
+// Phase 3.  y = (L * C B^T) X + diag(exp(a_cum)) C S_in[c]^T for one chunk.
+// One block of Q / 16 warps per (head, chunk, batch row); warp w owns rows
+// 16w..16w+15, so it reads S_in and X once per chunk.  The
+// inter-chunk term C S_in^T takes C by plain ldmatrix (A) and S_in, stored
+// [p][n], by plain ldmatrix (B = S_in^T column-major).  For the intra-chunk
+// term, the warp loads its rows of G = C B^T (chunk_cb) from L2 into
+// registers in the m16n8k16 accumulator layout, one 64-step tile at a time up
+// to its diagonal, the first while C S_in^T runs; weights them by
+// exp(a_cum_i - a_cum_j) on and below the diagonal only, and splits W into a
+// bf16 pair hi + lo in place as A operands (the accumulator layout is the A
+// layout), so W X is two products, X by ldmatrix .trans.  Both terms add in
+// fp32 and y is rounded once, staged through shared memory so each thread
+// writes 16 bytes.
+template <int Q, int PW, int NW>
+__global__ void __launch_bounds__(2 * Q, (PW == 64 ? 4 : 2) * 64 / Q) ssd_chunk_scan(
+    const bf16* __restrict__ x, const float* __restrict__ la, const bf16* __restrict__ cm,
+    const float* __restrict__ gm, const bf16* __restrict__ s_in, bf16* __restrict__ y, int s,
+    int h, int p, int n, int vec) {
+  using LX = Rows<PW>;
+  using LN = Rows<NW>;
+  constexpr int TILES = Q / TROWS;  // 64-step tiles of the chunk
+  constexpr int KN = NW / 16;     // k16 steps over N
+  constexpr int NP = PW / 8;      // n8 tiles of y's columns
+  extern __shared__ __align__(128) unsigned char smem[];
+  const uint32_t s_c = smem_u32(smem);      // [Q][NW]   C
+  const uint32_t s_s = s_c + Q * LN::BYTES;  // [PW][NW]  S_in
+  const uint32_t s_x = s_s + PW * LN::BYTES;  // [Q][PW]   X, then y's rows
+  float* ac2 = reinterpret_cast<float*>(smem + (Q + PW) * LN::BYTES + Q * LX::BYTES);
+
+  const int hh = blockIdx.x, c = blockIdx.y, b = blockIdx.z;
+  const int nc = gridDim.y;
+  const int t0 = c * Q;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int g = lane >> 2, t = lane & 3;
+  const size_t row = (size_t)h * p;
+  const bf16* xb = x + ((size_t)b * s + t0) * row + (size_t)hh * p;
+
+  // group 0: C and S_in; group 1 + jt: X of steps 64jt .. 64jt+63
+  load_rows<NW>(s_c, cm + ((size_t)b * s + t0) * n, n, Q, s - t0, n / 8, vec);
+  load_rows<NW>(s_s, s_in + (((size_t)b * nc + c) * h + hh) * p * n, n, PW, p, n / 8, true);
+  cp_async_commit();
+#pragma unroll
+  for (int jt = 0; jt < TILES; ++jt) {
+    const int j0 = jt * TROWS;
+    load_rows<PW>(s_x + j0 * LX::BYTES, xb + (size_t)j0 * row, row, TROWS, s - t0 - j0, p / 8, vec);
+    cp_async_commit();
+  }
+  if (warp == 0) chunk_cumsum<Q>(la + (size_t)b * s * h + hh, h, t0, s, ac2);
+
+  const int wr = 16 * warp;                         // the warp's first row in the chunk
+  const int wt = wr / TROWS, wq = wr % TROWS / 16;  // its step tile and place in it
+  const bool live = t0 + wr < s;  // G has no rows for a warp wholly past s
+  const float* gw = gm + ((size_t)b * nc + c) * Q * Q + (size_t)wr * Q;
+  // G of step tile jt: sc[st][e] is row wr + g + 8 (e / 2), step
+  // 64 jt + 8 st + 2t + (e % 2); groups past the diagonal are 0, never read.
+  float sc[TROWS / 8][4];
+  auto load_g = [&](int jt) {
+#pragma unroll
+    for (int st = 0; st < TROWS / 8; ++st)
+#pragma unroll
+      for (int r = 0; r < 2; ++r) {
+        float2 v = make_float2(0.f, 0.f);
+        if (live && !(jt == wt && (st >> 1) > wq))
+          v = *reinterpret_cast<const float2*>(&gw[(size_t)(g + 8 * r) * Q + jt * TROWS + 8 * st + 2 * t]);
+        sc[st][2 * r] = v.x;
+        sc[st][2 * r + 1] = v.y;
+      }
+  };
+  load_g(0);
+  cp_async_wait<TILES>();
+  __syncthreads();
+
+  // Inter-chunk term: matrices (p 16pb+0-7, chunk 2kk), (16pb+0-7, 2kk+1),
+  // (16pb+8-15, 2kk), (16pb+8-15, 2kk+1) are b0, b1 of p-tiles 2pb, 2pb+1.
+  float acc[NP][4];
+#pragma unroll
+  for (int np = 0; np < NP; ++np)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) acc[np][e] = 0.f;
+#pragma unroll
+  for (int kk = 0; kk < KN; ++kk) {
+    uint32_t cf[4];
+    ldmatrix_x4(cf, s_c + LN::off(16 * warp + (lane & 15), 2 * kk + (lane >> 4)));
+#pragma unroll
+    for (int pb = 0; pb < NP / 2; ++pb) {
+      uint32_t bs[4];
+      ldmatrix_x4(bs, s_s + LN::off(16 * pb + (lane & 7) + ((lane >> 4) << 3),
+                                    2 * kk + ((lane >> 3) & 1)));
+      mma_bf16(acc[2 * pb], cf, bs[0], bs[1]);
+      mma_bf16(acc[2 * pb + 1], cf, bs[2], bs[3]);
+    }
+  }
+  const float ai[2] = {ac2[wr + g], ac2[wr + g + 8]};
+  {
+    const float di[2] = {exp2_ftz(ai[0]), exp2_ftz(ai[1])};
+#pragma unroll
+    for (int np = 0; np < NP; ++np)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) acc[np][e] *= di[e >> 1];
+  }
+
+  // Intra-chunk term over the step tiles jt <= wt.
+#pragma unroll
+  for (int jt = 0; jt < TILES; ++jt) {
+    if (jt > 0 && jt <= wt) load_g(jt);
+    if (jt == 0) cp_async_wait<TILES - 1>();
+    else cp_async_wait<0>();
+    __syncthreads();
+    if (jt > wt) continue;
+    const int j0 = jt * TROWS;
+    const bool diag = jt == wt;  // the tile that holds the warp's diagonal
+#pragma unroll
+    for (int st = 0; st < TROWS / 8; ++st)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int i = wr + g + 8 * (e >> 1), j = j0 + 8 * st + 2 * t + (e & 1);
+        sc[st][e] = j <= i ? sc[st][e] * exp2_ftz(ai[e >> 1] - ac2[j]) : 0.f;
+      }
+    // y += W X, W = hi + lo: the accumulators of step tiles 2kk, 2kk+1 are
+    // W's A fragment for steps 16kk..16kk+15; X [step][p] by .trans:
+    // matrices (steps 16kk+0-7, chunk 2dp), (16kk+8-15, 2dp), (16kk+0-7,
+    // 2dp+1), (16kk+8-15, 2dp+1) are b0, b1 of p-tiles 2dp, 2dp+1.
+#pragma unroll
+    for (int kk = 0; kk < TROWS / 16; ++kk) {
+      if (diag && kk > wq) continue;
+      uint32_t wh[4], wl[4];
+      split_bf16(sc[2 * kk][0], sc[2 * kk][1], wh[0], wl[0]);
+      split_bf16(sc[2 * kk][2], sc[2 * kk][3], wh[1], wl[1]);
+      split_bf16(sc[2 * kk + 1][0], sc[2 * kk + 1][1], wh[2], wl[2]);
+      split_bf16(sc[2 * kk + 1][2], sc[2 * kk + 1][3], wh[3], wl[3]);
+#pragma unroll
+      for (int dp = 0; dp < NP / 2; ++dp) {
+        uint32_t bx[4];
+        ldmatrix_x4_trans(bx, s_x + LX::off(j0 + 16 * kk + (lane & 7) + (((lane >> 3) & 1) << 3),
+                                            2 * dp + (lane >> 4)));
+        mma_bf16(acc[2 * dp], wh, bx[0], bx[1]);
+        mma_bf16(acc[2 * dp + 1], wh, bx[2], bx[3]);
+        mma_bf16(acc[2 * dp], wl, bx[0], bx[1]);
+        mma_bf16(acc[2 * dp + 1], wl, bx[2], bx[3]);
+      }
+    }
+  }
+
+  // Stage the warp's 16 rows of y in its rows of X (after every warp is done
+  // with X), then write them out as 16-byte chunks.
+  __syncthreads();
+#pragma unroll
+  for (int np = 0; np < NP; ++np)
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      const uint32_t a = s_x + LX::off(16 * warp + g + 8 * r, np) + 4 * t;
+      asm volatile("st.shared.b32 [%0], %1;\n" ::"r"(a),
+                   "r"(pack_bf16(acc[np][2 * r], acc[np][2 * r + 1])));
+    }
+  __syncwarp();
+  bf16* yb = y + ((size_t)b * s + t0 + wr) * row + (size_t)hh * p;
+  for (int i = lane; i < 16 * NP; i += 32) {
+    const int r = i / NP, ch = i % NP;
+    if (t0 + wr + r < s && ch < p / 8) {
+      uint4 u;
+      asm volatile("ld.shared.v4.b32 {%0,%1,%2,%3}, [%4];\n"
+                   : "=r"(u.x), "=r"(u.y), "=r"(u.z), "=r"(u.w)
+                   : "r"(s_x + LX::off(16 * warp + r, ch)));
+      *reinterpret_cast<uint4*>(yb + (size_t)r * row + ch * 8) = u;
+    }
+  }
+}
+
+template <int Q, int PW, int NW>
+constexpr int state_smem() {  // the larger of a state block's and a C B^T block's
+  return Q * (PW + NW) * 2 + Q * 4 > (TROWS + Q) * NW * 2 ? Q * (PW + NW) * 2 + Q * 4
+                                                          : (TROWS + Q) * NW * 2;
+}
+template <int Q, int PW, int NW>
+constexpr int scan_smem() { return (Q + PW) * NW * 2 + Q * PW * 2 + Q * 4; }
+
+template <typename K>
+cudaError_t prefer_shared(K kernel, int smem) {
+  cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err != cudaSuccess) return err;
+  return cudaFuncSetAttribute(kernel, cudaFuncAttributePreferredSharedMemoryCarveout,
+                              cudaSharedmemCarveoutMaxShared);
+}
+
+template <int Q, int PW, int NW>
+cudaError_t launch_bf16(const bf16* x, const float* la, const bf16* bm, const bf16* cm,
+                        float* gm, float* s_loc, bf16* s_in, float* decay, const float* state0,
+                        bf16* y, float* state_out, int b, int s, int h, int p, int n, int vec,
+                        cudaStream_t stream) {
+  constexpr int sts = state_smem<Q, PW, NW>(), scs = scan_smem<Q, PW, NW>();
+  cudaError_t err = prefer_shared(ssd_chunk_state<Q, PW, NW>, sts);
+  if (err != cudaSuccess) return err;
+  err = prefer_shared(ssd_chunk_scan<Q, PW, NW>, scs);
+  if (err != cudaSuccess) return err;
+  const int nc = (s + Q - 1) / Q;
+  ssd_chunk_state<Q, PW, NW><<<dim3(h + Q / TROWS, nc, b), TNT, sts, stream>>>(
+      x, la, bm, cm, gm, s_loc, decay, s, h, p, n, vec);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+  const int pn = p * n;
+  ssd_state_pass<<<dim3((pn + SP_NT * SP_EL - 1) / (SP_NT * SP_EL), h, b), SP_NT, 0, stream>>>(
+      s_loc, decay, state0, s_in, state_out, h, pn, nc);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+  ssd_chunk_scan<Q, PW, NW><<<dim3(h, nc, b), 2 * Q, scs, stream>>>(
+      x, la, cm, gm, s_in, y, s, h, p, n, vec);
+  return cudaGetLastError();
+}
+
+template <int Q>
+cudaError_t dispatch_bf16(const bf16* x, const float* la, const bf16* bm, const bf16* cm,
+                          float* gm, float* s_loc, bf16* s_in, float* decay, const float* state0, bf16* y,
+                          float* state_out, int b, int s, int h, int p, int n, int vec,
+                          cudaStream_t st) {
+#define REPRO_SSD_CASE(PW, NW)                                                                   \
+  return launch_bf16<Q, PW, NW>(x, la, bm, cm, gm, s_loc, s_in, decay, state0, y, state_out, b, s, \
+                                h, p, n, vec, st)
+  if (p <= 64) {
+    if (n <= 64) REPRO_SSD_CASE(64, 64);
+    REPRO_SSD_CASE(64, 128);
+  }
+  if (n <= 64) REPRO_SSD_CASE(128, 64);
+  REPRO_SSD_CASE(128, 128);
+#undef REPRO_SSD_CASE
+}
+
+size_t align256(size_t bytes) { return (bytes + 255) & ~(size_t)255; }
+
+// The scratch one call needs, carved from `base` when it is not null: C B^T
+// of each (batch row, chunk), b * nc * chunk^2 floats; for bf16 also S_loc
+// (b, nc, h, p, n) fp32, S_in (b, nc, h, p, n) bf16 and decay (b, h, nc)
+// fp32; each on a 256-byte boundary.
+size_t scratch_layout(int b, int s, int h, int p, int n, int chunk, int is_bf16, char* base,
+                      float** cb, float** s_loc, bf16** s_in, float** decay) {
+  const size_t nc = (size_t)(s + chunk - 1) / chunk;
+  const size_t cb_bytes = align256(sizeof(float) * b * nc * chunk * chunk);
+  if (base != nullptr) *cb = reinterpret_cast<float*>(base);
+  if (!is_bf16) return cb_bytes;
+  const size_t states = (size_t)b * nc * h * p * n;
+  const size_t loc_bytes = align256(sizeof(float) * states);
+  const size_t in_bytes = align256(sizeof(bf16) * states);
+  if (base != nullptr) {
+    *s_loc = reinterpret_cast<float*>(base + cb_bytes);
+    *s_in = reinterpret_cast<bf16*>(base + cb_bytes + loc_bytes);
+    *decay = reinterpret_cast<float*>(base + cb_bytes + loc_bytes + in_bytes);
+  }
+  return cb_bytes + loc_bytes + in_bytes + align256(sizeof(float) * b * h * nc);
+}
+
+bool valid_shape(int b, int s, int h, int p, int n, int chunk) {
+  return b > 0 && s > 0 && h > 0 && p > 0 && p <= 128 && p % 8 == 0 && n > 0 && n <= NMAX &&
+         n % 8 == 0 && (chunk == 64 || chunk == 128) && b <= 65535 &&
+         (s + chunk - 1) / chunk <= 65535;
+}
+
 }  // namespace
 
 // Plain C interface, bound with ctypes (src/repro_torch/kernels/ops.py).
-// `state0` may be null (a zero initial state).  `cb_scratch` is fp32 scratch
-// of b * ceil(s / chunk) * chunk * chunk floats for the shared C B^T.
-// Returns a cudaError_t: 0 when both launches were accepted.  The wrapper
-// checks devices, dtypes, shapes and contiguity before it calls this.
+
+// Bytes of scratch that repro_ssd_scan_fwd needs for this shape (0 for a
+// shape it refuses).
+extern "C" size_t repro_ssd_scan_scratch_bytes(int b, int s, int h, int p, int n, int chunk,
+                                               int is_bf16) {
+  if (!valid_shape(b, s, h, p, n, chunk)) return 0;
+  return scratch_layout(b, s, h, p, n, chunk, is_bf16, nullptr, nullptr, nullptr, nullptr,
+                        nullptr);
+}
+
+// `state0` may be null (a zero initial state).  `scratch` holds
+// repro_ssd_scan_scratch_bytes(...) bytes on a 256-byte boundary.  Returns a
+// cudaError_t: 0 when every launch was accepted.  The wrapper checks devices,
+// dtypes, shapes and contiguity before it calls this.
 extern "C" int repro_ssd_scan_fwd(
-    const void* x, const float* log_da, const void* bmat, const void* cmat,
-    float* cb_scratch, const float* state0, void* y, float* state_out, int b, int s, int h,
-    int p, int n, int chunk, int is_bf16, void* stream) {
-  if (b <= 0 || s <= 0 || h <= 0 || p <= 0 || p > 128 || p % 8 != 0 || n <= 0 ||
-      n > NMAX || n % 8 != 0)
-    return (int)cudaErrorInvalidValue;
+    const void* x, const float* log_da, const void* bmat, const void* cmat, void* scratch,
+    const float* state0, void* y, float* state_out, int b, int s, int h, int p, int n,
+    int chunk, int is_bf16, void* stream) {
+  if (!valid_shape(b, s, h, p, n, chunk)) return (int)cudaErrorInvalidValue;
+  if ((reinterpret_cast<uintptr_t>(scratch) & 255) || (reinterpret_cast<uintptr_t>(y) & 15))
+    return (int)cudaErrorMisalignedAddress;
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
-  return (int)(is_bf16
-      ? dispatch<__nv_bfloat16>(x, log_da, bmat, cmat, cb_scratch, state0, y, state_out, b, s, h, p, n, chunk, st)
-      : dispatch<float>(x, log_da, bmat, cmat, cb_scratch, state0, y, state_out, b, s, h, p, n, chunk, st));
+  float *cb = nullptr, *s_loc = nullptr, *decay = nullptr;
+  bf16* s_in = nullptr;
+  scratch_layout(b, s, h, p, n, chunk, is_bf16, static_cast<char*>(scratch), &cb, &s_loc, &s_in,
+                 &decay);
+  if (!is_bf16)
+    return (int)dispatch<float>(x, log_da, bmat, cmat, cb, state0, y, state_out, b, s, h, p, n,
+                                chunk, st);
+  const int vec = ((reinterpret_cast<uintptr_t>(x) | reinterpret_cast<uintptr_t>(bmat) |
+                    reinterpret_cast<uintptr_t>(cmat)) & 15) == 0;
+  const bf16 *xb = static_cast<const bf16*>(x), *bb = static_cast<const bf16*>(bmat),
+             *cb16 = static_cast<const bf16*>(cmat);
+  bf16* yb = static_cast<bf16*>(y);
+  return (int)(chunk == 64
+      ? dispatch_bf16<64>(xb, log_da, bb, cb16, cb, s_loc, s_in, decay, state0, yb, state_out, b, s, h, p, n, vec, st)
+      : dispatch_bf16<128>(xb, log_da, bb, cb16, cb, s_loc, s_in, decay, state0, yb, state_out, b, s, h, p, n, vec, st));
 }

@@ -102,6 +102,9 @@ def _ssd_lib() -> ctypes.CDLL:
     fn = lib.repro_ssd_scan_fwd
     fn.argtypes = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 7 + [ctypes.c_void_p]
     fn.restype = ctypes.c_int
+    size = lib.repro_ssd_scan_scratch_bytes
+    size.argtypes = [ctypes.c_int] * 7
+    size.restype = ctypes.c_size_t
     return lib
 
 
@@ -119,7 +122,10 @@ def ssd_scan(
     xbar (B,S,H,P), log_da (B,S,H) fp32, bmat/cmat (B,S,N) of xbar's dtype
     (fp32 or bf16), optional fp32 ``state0`` (B,H,P,N); see
     ``ref.ssd_scan_ref``.  On the card P and N are multiples of 8 up to 128
-    and ``chunk`` is 64 or 128.
+    and ``chunk`` is 64 or 128.  bf16 runs Mamba2's chunk-parallel split on
+    the tensor cores (three kernels; B * decay and the chunks' incoming
+    states rounded to bf16, the intra-chunk weights as a bf16 pair hi + lo;
+    ``csrc/ssd_scan.cu``); fp32 runs the CUDA-core kernels in true fp32.
     """
     if xbar.ndim != 4 or log_da.ndim != 3 or bmat.ndim != 3 or cmat.ndim != 3:
         raise ValueError(
@@ -162,15 +168,20 @@ def ssd_scan(
         raise ValueError(f"empty scan: xbar {tuple(xbar.shape)}")
     y = torch.empty_like(xbar)
     state = torch.empty((b, h, p, n), dtype=torch.float32, device=xbar.device)
-    # C B^T of each (batch row, chunk), computed once and shared by all heads
-    cb = torch.empty((b, -(-s // chunk), chunk, chunk), dtype=torch.float32, device=xbar.device)
+    is_bf16 = int(xbar.dtype == torch.bfloat16)
     lib = _ssd_lib()
+    # the kernels' scratch (C B^T of each chunk; for bf16 also the chunks'
+    # local and incoming states), laid out by the C side; torch's allocations
+    # start on a 256-byte boundary
+    nbytes = lib.repro_ssd_scan_scratch_bytes(b, s, h, p, n, chunk, is_bf16)
+    if nbytes == 0:
+        raise ValueError(f"ssd_scan refuses xbar {tuple(xbar.shape)}, state {n}, chunk {chunk}")
+    scratch = torch.empty(nbytes, dtype=torch.uint8, device=xbar.device)
     with torch.cuda.device(xbar.device):
         err = lib.repro_ssd_scan_fwd(
-            xbar.data_ptr(), log_da.data_ptr(), bmat.data_ptr(), cmat.data_ptr(), cb.data_ptr(),
+            xbar.data_ptr(), log_da.data_ptr(), bmat.data_ptr(), cmat.data_ptr(), scratch.data_ptr(),
             None if state0 is None else state0.data_ptr(), y.data_ptr(), state.data_ptr(),
-            b, s, h, p, n, chunk, int(xbar.dtype == torch.bfloat16),
-            torch.cuda.current_stream(xbar.device).cuda_stream,
+            b, s, h, p, n, chunk, is_bf16, torch.cuda.current_stream(xbar.device).cuda_stream,
         )
     if err != 0:
         raise RuntimeError(f"ssd_scan kernel launch failed with cudaError_t {err}")

@@ -63,8 +63,11 @@ def ssd_chunked(
     """Chunked SSD scan.  Returns (y (B,S,H,P), final_state (B,H,P,N) fp32).
 
     The reference rounds the intra-chunk weights to xbar's dtype (bf16 on the
-    model path) before the second product; the kernel and its plain version
-    keep them in fp32, so the two agree to the bf16 bar, not bit for bit.
+    model path) before the second product; the card's bf16 kernel feeds them
+    as a bf16 pair hi + lo, and rounds B * decay and each chunk's incoming
+    state to bf16 as product operands (sums and the carried state stay
+    fp32); the plain version keeps every operand in fp32.  They agree to the
+    bf16 bar, not bit for bit.
     """
     return ops.ssd_scan(xbar, log_da, bmat, cmat, chunk=chunk, state0=state0)
 

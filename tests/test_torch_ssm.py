@@ -7,12 +7,20 @@ against the reference's XLA twin ``repro.models.ssm.ssd_chunked``, on the
 same inputs made with numpy.  The CUDA kernel itself is held against the
 plain version on the card by ``chip_smoke.py``.
 
+The card's bf16 kernel computes the scan by Mamba2's chunk-parallel split
+(chunks' local states, a serial pass over the chunks, then each chunk's
+output) and rounds its operands to bf16; ``_split_scan`` below repeats its
+phases and rounding points in plain PyTorch, and is held against the plain
+scan in fp32 without rounding (the algebra of the split) and against the
+reference's kernels in bf16 with the kernel's rounding.
+
 Bars are the reference's own (``tests/test_kernels.py``): the Pallas kernel's
 fp32 2e-5 and bf16 atol 2e-2 / rtol 5e-2; the twin's fp32 atol 2e-5 / rtol
 2e-4; bf16 2e-2 for the block, whose bf16 roundings fall at other places in
 the two packages.  The twin rounds its intra-chunk weights to bf16 before the
-second product (``ssm.py:84``) where the Pallas kernel and the port keep
-them in fp32, so on bf16 the block agrees to the bar, not bit for bit.
+second product (``ssm.py:84``); the card's bf16 kernel feeds them as a bf16
+pair hi + lo, and the Pallas kernel and the port's plain version keep them
+in fp32, so on bf16 the block agrees to the bar, not bit for bit.
 """
 
 import dataclasses
@@ -128,6 +136,84 @@ def test_ssd_scan_rejects_bad_dtypes_and_shapes():
         ops.ssd_scan(x, a, bm, bm, state0=torch.zeros((1, 2, 8, 4)))
     with pytest.raises(ValueError, match="chunk"):
         ops.ssd_scan(x, a, bm, bm, chunk=0)
+
+
+def _split_scan(xbar, log_da, bmat, cmat, *, chunk, state0=None, rounded=False):
+    """The card's bf16 SSD kernel (``csrc/ssd_scan.cu``), phase by phase, in plain PyTorch.
+
+    1. S_loc[c] = x^T (B * dout), dout_j = exp(a_last - a_cum_j);
+    2. S_in[0] = state0 (or 0), S_in[c+1] = exp(a_last_c) S_in[c] + S_loc[c];
+    3. y = (L * C B^T) x + exp(a_cum) * (C S_in[c]^T).
+    With ``rounded``, at the kernel's rounding points: B * dout and S_in
+    rounded to bf16 as product operands, and W = L * C B^T split into a bf16
+    pair hi + lo (two products); every sum and the carried state stay fp32,
+    and y is rounded once to xbar's dtype.
+    """
+    b, s, h, p = xbar.shape
+    n = bmat.shape[-1]
+    pad = (-s) % chunk
+    nc = (s + pad) // chunk
+    x, a, bm, cm = (torch.nn.functional.pad(t.float(), (0, 0) * (t.ndim - 2) + (0, pad))
+                    for t in (xbar, log_da, bmat, cmat))
+    x = x.reshape(b, nc, chunk, h, p)
+    a = a.reshape(b, nc, chunk, h)
+    bm, cm = bm.reshape(b, nc, chunk, n), cm.reshape(b, nc, chunk, n)
+
+    def rnd(t):
+        return t.bfloat16().float() if rounded else t
+
+    def pair(t):
+        return rnd(t) + rnd(t - rnd(t))
+
+    a_cum = a.cumsum(2)  # (B,nc,Q,H)
+    a_last = a_cum[:, :, -1]  # (B,nc,H)
+    dout = torch.exp(a_last[:, :, None] - a_cum)
+    s_loc = torch.einsum("bcjhp,bcjhn->bchpn", x, rnd(bm[:, :, :, None, :] * dout[..., None]))
+    st = torch.zeros((b, h, p, n)) if state0 is None else state0.float()
+    s_in = []
+    for c in range(nc):
+        s_in.append(st)
+        st = torch.exp(a_last[:, c])[..., None, None] * st + s_loc[:, c]
+    s_in = torch.stack(s_in, 1)  # (B,nc,H,P,N)
+    idx = torch.arange(chunk)
+    upper = (idx[:, None] < idx[None, :])[:, :, None]  # (i, j, 1): j > i
+    diff = a_cum[:, :, :, None, :] - a_cum[:, :, None, :, :]  # (B,nc,i,j,H)
+    w = torch.einsum("bcin,bcjn->bcij", cm, bm)[..., None] * torch.exp(diff.masked_fill(upper, float("-inf")))
+    y = torch.einsum("bcijh,bcjhp->bcihp", pair(w), x)
+    y = y + torch.exp(a_cum)[..., None] * torch.einsum("bcin,bchpn->bcihp", cm, rnd(s_in))
+    return y.reshape(b, nc * chunk, h, p)[:, :s].to(xbar.dtype), st
+
+
+@pytest.mark.parametrize("s", [300, 128])  # ragged; one chunk
+@pytest.mark.parametrize("chunk", [64, 128])
+@pytest.mark.parametrize("with_state", [False, True])
+def test_chunk_parallel_split_equals_the_plain_scan(s, chunk, with_state):
+    """The split's algebra (S_loc, S_in, state_out) in fp32 without rounding: the plain scan's
+    y and final state within the fp32 kernel bar."""
+    _, tin = _scan_inputs(6, 2, s, 4, 16, 32, state=with_state)
+    state0 = tin[4] if with_state else None
+    y, st = _split_scan(*tin[:4], chunk=chunk, state0=state0)
+    y_ref, st_ref = ref.ssd_scan_ref(*tin[:4], chunk=chunk, state0=state0)
+    np.testing.assert_allclose(_np(y), _np(y_ref), atol=2e-5, rtol=2e-5)
+    np.testing.assert_allclose(_np(st), _np(st_ref), atol=2e-5, rtol=2e-5)
+
+
+@pytest.mark.parametrize("b,s,h,p,n", [(1, 300, 8, 64, 128), (2, 512, 4, 64, 128)])
+def test_bf16_split_rounding_matches_reference_kernels(b, s, h, p, n):
+    """The bf16 kernel's rounding (B * dout and S_in in bf16, W as hi + lo) stays inside the reference's
+    bf16 SSD bar: y against the Pallas kernel (no initial state, which it does not take) and
+    against the reference's recurrence ``ssd_ref`` from a unit-scale state0; the final state
+    against the plain scan."""
+    bar = dict(atol=2e-2, rtol=5e-2)
+    jin, tin = _scan_inputs(7, b, s, h, p, n, "bfloat16", state=True)
+    y, _ = _split_scan(*tin[:4], chunk=128, rounded=True)
+    assert y.dtype == torch.bfloat16
+    np.testing.assert_allclose(_np(y), _np(jops.ssd_scan(*jin[:4])), **bar)
+    y, st = _split_scan(*tin[:4], chunk=128, state0=tin[4], rounded=True)
+    y_ref, _ = jref.ssd_ref(*jin)
+    np.testing.assert_allclose(_np(y), _np(y_ref), **bar)
+    _, st_ref = ref.ssd_scan_ref(*tin[:4], chunk=128, state0=tin[4])
+    np.testing.assert_allclose(_np(st), _np(st_ref), **bar)
 
 
 @pytest.mark.parametrize("with_state", [False, True])
