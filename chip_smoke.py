@@ -1,5 +1,5 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch port's serving paths on one NVIDIA GPU (built for the H100).
+"""Drive the PyTorch port's serving paths and estimation pipeline on one NVIDIA GPU (the H100).
 
   python3 chip_smoke.py
 
@@ -56,11 +56,24 @@ Phases, each failing loudly (an exception or a non-zero exit):
    most kernels),
    with the back-to-back CUDA-event time per call beside it (``event_ms``),
    which also counts the host whenever a call's dispatch outlasts its kernels;
-6. a ``{"slice": ...}`` line per model, a ``{"kernels": [...]}`` line (``ms``,
+6. the paper's estimation pipeline with the card as its measured black-box
+   platform (``estimate_on_card``): ``Campaign.run`` of ``repro_torch.api``
+   on ``TorchDevicePlatform(device="cuda", dtype="bfloat16")`` for
+   ``"dense"``, once sampling the PR set and once at random (500 points
+   each, seed 0, one shared measurement cache); 300 held-out random configs
+   from another seed, measured; the discovered step widths, the cache's
+   counts and measure seconds, each campaign's wall seconds, PR-MAPE and
+   random-MAPE on the held-out set; the platform's repeatability (20 configs
+   measured by two fresh platform objects); the ``"torch"`` backend's layer
+   predictions on the card against the ``"numpy"`` backend's (bitwise), and
+   network predictions for MLP stacks of dense blocks (rtol 1e-12).  The
+   launch counters are set to 0 before it and read after it: the pipeline
+   runs none of the port's kernels (cuBLAS runs the timed GEMMs);
+7. a ``{"slice": ...}`` line per model, a ``{"kernels": [...]}`` line (``ms``,
    ``plain_ms`` and ``library_ms`` are device times; ``event_ms`` and the
    other ``*_event_ms`` the CUDA-event times; ``bound_share`` is
-   ``bound_ms / ms``), then the result line, last:
-   ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
+   ``bound_ms / ms``), an ``{"estimation": ...}`` line, then the result line,
+   last: ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
 """
 
 from __future__ import annotations
@@ -98,6 +111,10 @@ PREFILL_REL_L2 = 2e-2
 # bf16 bar), and the end-to-end gap to the plain route may exceed the plain
 # route's own gap under that change of order by at most this factor.
 SSM_FLOOR_FACTOR = 1.25
+
+# Phase 6: the campaigns' budget, the held-out set and the repeatability probe
+EST_SAMPLES, EST_HELD_OUT, EST_REPEAT = 500, 300, 20
+NET_RTOL = 1e-12  # networks on the card: index_add_ orders float64 sums freely
 
 BATCH, PROMPT, GEN, SEED = 4, 512, 32, 0
 LONG_PROMPT = 2048  # one sequence of 16 scan chunks: the split's serial pass and parallelism
@@ -661,6 +678,103 @@ def time_ssd() -> dict:
             "library_ms": None, "library_event_ms": None, "chunk64_ms": kernel64["ms"]}
 
 
+def estimate_on_card(smi: str) -> dict:
+    """Phase 6: PR-sampled against randomly sampled estimators of the card's dense layers."""
+    import numpy as np
+    import torch
+
+    from repro_torch.accelerators.torch_device import TorchDevicePlatform
+    from repro_torch.api import Campaign, CampaignSpec, MeasurementCache
+    from repro_torch.core import prs, sweeps
+    from repro_torch.core.blocks import Block
+    from repro_torch.core.forest import mape
+
+    platform = TorchDevicePlatform(device="cuda", dtype="bfloat16")
+    cache = MeasurementCache()
+    oracles, walls, stats = {}, {}, {}
+    t_all = time.perf_counter()
+    for sampling in ("pr", "random"):
+        campaign = Campaign(
+            CampaignSpec(platform="torch_device", layer_types=("dense",), sampling=sampling,
+                         n_samples=EST_SAMPLES, seed=SEED),
+            platform=platform, cache=cache)
+        t0 = time.perf_counter()
+        oracles[sampling] = campaign.run(device="cuda")
+        walls[sampling] = time.perf_counter() - t0
+        stats[sampling] = campaign.stats()
+        est = oracles[sampling].estimators["dense"]
+        log(f"campaign {sampling}: {walls[sampling]:.2f} s wall, widths {dict(est.widths)}, "
+            f"{est.n_sweep} sweep measurements, {est.mean_measure_seconds * 1e3:.3f} ms per "
+            f"training point; cache {stats[sampling]}")
+    campaign_s = time.perf_counter() - t_all
+    # The sweeps again, all from the cache: what Algorithm 1 read its widths from
+    sweep_ms = {}
+    for p, (x, y) in sweeps.run_sweeps(campaign.platform, "dense").items():
+        by_residue = [float(np.median(y[x % 8 == r])) * 1e3 for r in range(8)]
+        sweep_ms[p] = {"window": [int(x[0]), int(x[-1])], "min": float(y.min()) * 1e3,
+                       "max": float(y.max()) * 1e3, "median_by_residue_mod_8": by_residue}
+        log(f"sweep {p} {x[0]}-{x[-1]}: ms min {y.min() * 1e3:.4f} max {y.max() * 1e3:.4f}; median by "
+            f"{p} mod 8: {', '.join(f'{v:.4f}' for v in by_residue)}")
+    assert campaign.stats()["misses"] == stats["random"]["misses"], "the sweep summary measured anew"
+    space = platform.param_space("dense")
+    held_out = prs.sample_random_batch(space, EST_HELD_OUT, np.random.default_rng(SEED + 1))
+    t0 = time.perf_counter()
+    y_true = campaign.platform.measure_many("dense", held_out)
+    held_out_s = time.perf_counter() - t0
+    mapes, predict_ms = {}, {}
+    for sampling, oracle in oracles.items():
+        for backend in ("numpy", "torch"):
+            t0 = time.perf_counter()
+            y = oracle.predict("dense", held_out, backend=backend)
+            predict_ms[f"{sampling}_{backend}"] = (time.perf_counter() - t0) * 1e3
+            if backend == "numpy":
+                expect = y
+        assert y.tobytes() == expect.tobytes(), (
+            f"{sampling}: torch layer predictions on the card are not bitwise equal to numpy's, "
+            f"max abs {np.max(np.abs(y - expect)):.3e}")
+        mapes[sampling] = mape(y_true, y)
+    log(f"held-out: {EST_HELD_OUT} random configs (seed {SEED + 1}) measured in {held_out_s:.2f} s; "
+        f"PR-MAPE {mapes['pr']:.3f} %, random-MAPE {mapes['random']:.3f} %; torch layer "
+        f"predictions bitwise equal to numpy on the card; predict ms {predict_ms}")
+
+    # The noise floor: the same configs timed by two fresh platform objects.
+    probe = prs.sample_random_batch(space, EST_REPEAT, np.random.default_rng(SEED + 2))
+    first, second = (TorchDevicePlatform(device="cuda", dtype="bfloat16").measure_many("dense", probe)
+                     for _ in range(2))
+    rel = np.abs(second - first) / first
+    log(f"repeatability over {EST_REPEAT} configs: median relative difference "
+        f"{np.median(rel):.4f}, max {np.max(rel):.4f}")
+
+    # Whole networks: MLP stacks of dense blocks at qwen2-1.5b's widths
+    nets = [[Block(kind="mlp", layers=(
+        ("dense", {"tokens": t, "d_in": 1536, "d_out": 8960}),
+        ("dense", {"tokens": t, "d_in": 8960, "d_out": 1536}),
+    ), repeat=28)] for t in (16, 128, 512, 1000, 2048, 4096)]
+    for sampling, oracle in oracles.items():
+        got = oracle.predict_networks(nets, backend="torch")
+        expect = oracle.predict_networks(nets, backend="numpy")
+        np.testing.assert_allclose(got, expect, rtol=NET_RTOL, atol=0)
+    net_rel = float(np.max(np.abs(got - expect) / expect))
+    log(f"networks ({len(nets)} MLP stacks of 28 dense blocks) on the card within rtol "
+        f"{NET_RTOL:g} of numpy (max relative difference {net_rel:.3e}); pr estimates ms "
+        f"{[round(float(x) * 1e3, 4) for x in oracles['pr'].predict_networks(nets)]}")
+    torch.cuda.empty_cache()
+    pr_est = oracles["pr"].estimators["dense"]
+    return {
+        "platform": platform.cache_key(), "card": smi, "n_samples": EST_SAMPLES,
+        "widths": dict(pr_est.widths), "n_sweep": pr_est.n_sweep, "sweep_ms": sweep_ms,
+        "unique_measurements": stats["random"]["unique_measurements"],
+        "measure_seconds": stats["random"]["measure_seconds"],
+        "campaign_seconds": {**walls, "both": campaign_s},
+        "mean_measure_seconds": {k: o.estimators["dense"].mean_measure_seconds for k, o in oracles.items()},
+        "held_out": EST_HELD_OUT, "held_out_seconds": held_out_s,
+        "pr_mape": mapes["pr"], "random_mape": mapes["random"],
+        "repeatability": {"configs": EST_REPEAT, "median_rel": float(np.median(rel)),
+                          "max_rel": float(np.max(rel))},
+        "layer_bitwise": True, "network_max_rel": net_rel, "predict_ms": predict_ms,
+    }
+
+
 def main() -> int:
     import torch
 
@@ -710,7 +824,15 @@ def main() -> int:
         torch.cuda.empty_cache()
     timings = {"flash_attention": time_flash(), "ssd_scan": time_ssd()}
 
-    # ---- 6. result lines
+    # ---- 6. the estimation pipeline, the card as its black-box platform
+    from repro_torch.kernels import ops
+
+    for name in KERNELS:
+        getattr(ops, name).launches = 0
+    estimation = estimate_on_card(smi)
+    estimation["kernel_launches"] = {name: getattr(ops, name).launches for name in KERNELS}
+
+    # ---- 7. result lines
     sources = {
         "flash_attention": ("src/repro_torch/kernels/csrc/flash_attention.cu",
                             "src/repro/kernels/flash_attention.py:89"),
@@ -731,6 +853,7 @@ def main() -> int:
     for line in slices:
         log(json.dumps({"slice": {**line, "card": smi}}))
     log(json.dumps({"kernels": kernels}))
+    log(json.dumps({"estimation": estimation}))
     log(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind, "count": count}}))
     return 0
 

@@ -12,10 +12,14 @@ On a CPU tensor a kernel's wrapper runs its plain PyTorch version; on a CUDA
 tensor it launches the kernel or raises.
 
 Entry points (``models.transformer.init_params``, ``launch.serve.generate``,
-``python -m repro_torch.launch.serve``) run on ``cuda`` unless the caller asks
-for ``device="cpu"``; without a card they raise (``device.resolve_device``).
+``python -m repro_torch.launch.serve``, ``api.Campaign`` on ``torch_device``,
+``api.PerfOracle`` with the ``"torch"`` backend) run on ``cuda`` unless the
+caller asks for ``device="cpu"``; without a card they raise
+(``device.resolve_device``).
 
 Ported so far: the serving paths of the dense family (qwen2-1.5b and the
 other dense configs) with the flash-attention kernel, and of the ssm family
-(mamba2-780m) with the SSD-scan kernel.  See ROADMAP.md for the rest.
+(mamba2-780m) with the SSD-scan kernel; the estimation pipeline's main path
+(``api``: campaign, cache, oracle, hub; ``core``; the measured platform
+``accelerators.torch_device``).  See ROADMAP.md for the rest.
 """
