@@ -42,11 +42,30 @@ def journal_path(directory: str, name: str = "measurements") -> str:
     return os.path.join(directory, f"{name}.jsonl")
 
 
+# numpy has no bfloat16: a bf16 leaf is stored as its raw 2-byte words, the
+# npz dtype ``|V2`` that ``np.savez`` writes for the reference's jax bf16 leaves
+_BF16_WORDS = np.dtype("V2")
+
+
+def _is_bf16(v: Any) -> bool:
+    return isinstance(v, torch.Tensor) and v.dtype == torch.bfloat16
+
+
 def _to_host(v: Any) -> np.ndarray:
-    """Gather one leaf to a host numpy array."""
+    """Gather one leaf to a host numpy array (a bf16 tensor as ``|V2`` words)."""
     if isinstance(v, torch.Tensor):
-        return v.detach().cpu().numpy()
+        v = v.detach().cpu()
+        if v.dtype == torch.bfloat16:
+            return v.contiguous().view(torch.int16).numpy().view(_BF16_WORDS)
+        return v.numpy()
     return np.asarray(v)
+
+
+def _from_host(a: np.ndarray, like: Any) -> Any:
+    """A restored leaf: a bf16 tensor where the skeleton holds one, else the array."""
+    if _is_bf16(like):
+        return torch.from_numpy(a.view(np.int16)).view(torch.bfloat16).to(like.device)
+    return a
 
 
 def _flatten(tree: Any, prefix: str = "") -> dict[str, Any]:
@@ -68,7 +87,7 @@ def _unflatten(flat: dict[str, Any], skeleton: Any, prefix: str = "") -> Any:
     if isinstance(skeleton, (list, tuple)):
         seq = [_unflatten(flat, v, f"{prefix}{i}/") for i, v in enumerate(skeleton)]
         return type(skeleton)(seq)
-    return flat[prefix[:-1]]
+    return _from_host(flat[prefix[:-1]], skeleton)
 
 
 class CheckpointManager:
@@ -95,7 +114,7 @@ class CheckpointManager:
             "step": step,
             "keys": sorted(arrays),
             "shapes": {k: list(a.shape) for k, a in arrays.items()},
-            "dtypes": {k: str(a.dtype) for k, a in arrays.items()},
+            "dtypes": {k: "bfloat16" if _is_bf16(flat[k]) else str(a.dtype) for k, a in arrays.items()},
         }
         with open(os.path.join(tmp, "manifest.json"), "w") as f:
             json.dump(manifest, f)
@@ -125,6 +144,10 @@ class CheckpointManager:
 
     def restore(self, skeleton: Any, step: int | None = None, shardings: Any = None) -> tuple[Any, int]:
         """Restore into the structure of ``skeleton``.
+
+        A leaf whose skeleton is a bf16 tensor comes back as a bf16 tensor
+        (same bits, the skeleton's device); every other leaf as the stored
+        numpy array, as in the reference.
 
         ``shardings``: the elastic-resharding path, which places arrays
         onto the current mesh; it is not ported yet (ROADMAP.md, queue 1:

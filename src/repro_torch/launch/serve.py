@@ -4,14 +4,16 @@
       --batch 4 --prompt-len 512 --gen 32
   PYTHONPATH=src python -m repro_torch.launch.serve --arch mamba2-780m \
       --batch 4 --prompt-len 512 --gen 32
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch olmoe-1b-7b \
+      --batch 4 --prompt-len 512 --gen 32
 
-Ported from the model-run path of ``repro.launch.serve``, for the dense and
-ssm families.  It runs on ``cuda`` unless ``--device cpu`` is given, and
+Ported from the model-run path of ``repro.launch.serve``, for the dense, moe
+and ssm families.  It runs on ``cuda`` unless ``--device cpu`` is given, and
 raises without a card.  One departure: ``--attention-impl`` (default
 ``flash_pallas``) overrides the config's attention route, so by default the
-cached prefill of a dense model runs the hand-written Hopper flash-attention
-kernel.  A mamba2 prefill runs the hand-written SSD-scan kernel on the card
-whatever the flag says.  The estimation paths
+cached prefill of a dense or moe model runs the hand-written Hopper
+flash-attention kernel.  A mamba2 prefill runs the hand-written SSD-scan
+kernel on the card whatever the flag says.  The estimation paths
 (``--estimate``, ``--estimate-only``, ``--serve-oracle``, ``--fsck``) are not
 ported yet and exit non-zero.
 """

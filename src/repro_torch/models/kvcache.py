@@ -1,10 +1,10 @@
-"""Decode-time caches of the dense and ssm families, ported from ``repro.models.kvcache``.
+"""Decode-time caches of the dense, moe and ssm families, ported from ``repro.models.kvcache``.
 
 Each cache is a flat dict whose ``len``, the number of positions written, is
 a Python int (the reference keeps an int32 array; on one device every layer
 has the same length, and a host int costs no device sync).
 
-* dense: bf16 ``k`` and ``v`` of shape (L, B, S_max, KVH, D);
+* dense and moe: bf16 ``k`` and ``v`` of shape (L, B, S_max, KVH, D);
   ``self_attention`` updates them in place.
 * ssm: fp32 conv buffers ``conv_x`` (L, B, K-1, d_inner), ``conv_b`` and
   ``conv_c`` (L, B, K-1, N), and the fp32 SSM ``state`` (L, B, H, P, N);
@@ -37,7 +37,7 @@ def init_cache(cfg: ModelConfig, batch: int, max_len: int, device: torch.device 
             ),
             "len": 0,
         }
-    if cfg.family != "dense":
+    if cfg.family not in ("dense", "moe"):
         raise NotImplementedError(f"family {cfg.family!r} caches are not ported yet")
     shape = (cfg.n_layers, batch, max_len, cfg.n_kv_heads, cfg.head_dim)
     return {

@@ -65,6 +65,16 @@ def apply_rope(x: torch.Tensor, positions: torch.Tensor, theta: float) -> torch.
 
 
 # ------------------------------------------------------------------ MLP
+def silu(x: torch.Tensor) -> torch.Tensor:
+    """``jax.nn.silu``'s own steps, ``x * (1 / (1 + exp(-x)))``, each rounded to x's dtype.
+
+    ``F.silu`` rounds once; on bf16 the two differ by one step in many
+    elements, which the SSM's four silus a layer and the MoE's experts carry
+    into the logits.
+    """
+    return x * (1 / (1 + torch.exp(-x)))
+
+
 def mlp_block(x: torch.Tensor, p: dict, kind: str) -> torch.Tensor:
     """Gated (swiglu) or plain gelu MLP."""
     if kind == "swiglu":
@@ -79,20 +89,23 @@ def embed_tokens(tokens: torch.Tensor, w_embed: torch.Tensor) -> torch.Tensor:
     return F.embedding(tokens, cast(w_embed))
 
 
-def lm_head(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
-    """x: (B, S, D) bf16, w: (D, V) -> logits (B, S, V) fp32.
+def matmul_f32(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """(M, K) x (K, N) -> fp32 (M, N) from bf16 operands, as the reference's
+    ``einsum(..., preferred_element_type=float32)``.
 
-    The reference takes bf16 operands and fp32 output from one product.  A
-    bf16-output matmul followed by ``.float()`` would round the logits to
-    bf16 and could flip a greedy argmax at a near tie, so the fp32 result
-    comes out of the product itself: cuBLAS's bf16 GEMM with an fp32 output
-    on the card, and an fp32 product of the (exactly representable) bf16
-    values on the CPU, which has no such GEMM.
+    A bf16-output matmul followed by ``.float()`` would round the result to
+    bf16 and could flip a greedy argmax or a router's top-k at a near tie, so
+    the fp32 result comes out of the product itself: cuBLAS's bf16 GEMM with
+    an fp32 output on the card, and an fp32 product of the (exactly
+    representable) bf16 values on the CPU, which has no such GEMM.
     """
+    a, b = cast(a), cast(b)
+    if a.is_cuda:
+        return torch.mm(a, b, out_dtype=torch.float32)
+    return torch.mm(a.float(), b.float())
+
+
+def lm_head(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """x: (B, S, D) bf16, w: (D, V) -> logits (B, S, V) fp32 (``matmul_f32``)."""
     b, s, d = x.shape
-    x2, w = cast(x).reshape(b * s, d), cast(w)
-    if x2.is_cuda:
-        logits = torch.mm(x2, w, out_dtype=torch.float32)
-    else:
-        logits = torch.mm(x2.float(), w.float())
-    return logits.reshape(b, s, -1)
+    return matmul_f32(x.reshape(b * s, d), w).reshape(b, s, -1)

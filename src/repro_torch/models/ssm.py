@@ -21,15 +21,6 @@ from repro_torch.models.config import ModelConfig
 CACHE_KEYS = ("conv_x", "conv_b", "conv_c", "state")
 
 
-def silu(x: torch.Tensor) -> torch.Tensor:
-    """``jax.nn.silu``'s own steps, ``x * (1 / (1 + exp(-x)))``, each rounded to x's dtype.
-
-    ``F.silu`` rounds once; on bf16 the two differ by one step in many
-    elements, which four silus a layer carry into the logits.
-    """
-    return x * (1 / (1 + torch.exp(-x)))
-
-
 def depthwise_conv1d(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor, state: torch.Tensor | None = None):
     """Causal depthwise conv along seq.  x: (B,S,C); w: (K,C); b: (C,).
 
@@ -90,9 +81,9 @@ def mamba_block(x: torch.Tensor, p: dict, cfg: ModelConfig, cache: dict | None =
     xs, new_conv_x = depthwise_conv1d(xs, L.cast(p["w_conv_x"]), L.cast(p["b_conv_x"]), cs.get("conv_x"))
     bmat, new_conv_b = depthwise_conv1d(bmat, L.cast(p["w_conv_b"]), L.cast(p["b_conv_b"]), cs.get("conv_b"))
     cmat, new_conv_c = depthwise_conv1d(cmat, L.cast(p["w_conv_c"]), L.cast(p["b_conv_c"]), cs.get("conv_c"))
-    xs = silu(xs)
-    bmat = silu(bmat)
-    cmat = silu(cmat)
+    xs = L.silu(xs)
+    bmat = L.silu(bmat)
+    cmat = L.silu(cmat)
 
     dt = F.softplus(dt.float() + p["dt_bias"])  # (B,S,H) fp32
     a = -torch.exp(p["a_log"])  # (H,) negative
@@ -113,7 +104,7 @@ def mamba_block(x: torch.Tensor, p: dict, cfg: ModelConfig, cache: dict | None =
 
     y = y + xhp * p["d_skip"].to(x.dtype)[None, None, :, None]
     y = y.reshape(bsz, s, cfg.d_inner)
-    y = L.rms_norm(y * silu(z), p["norm"], cfg.norm_eps)
+    y = L.rms_norm(y * L.silu(z), p["norm"], cfg.norm_eps)
     out = L.dense(y, p["w_out"])
     new_cache = None
     if cache is not None:

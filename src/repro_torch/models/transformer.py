@@ -1,4 +1,4 @@
-"""Model assembly, ported from ``repro.models.transformer`` (dense and ssm families).
+"""Model assembly, ported from ``repro.models.transformer`` (dense, moe and ssm families).
 
 Entry points:
   init_params(cfg, generator, device)   -> parameter dict
@@ -10,8 +10,9 @@ leading axis and scans; the port loops).  Matmul weights and biases are held
 in bf16 and norm scales in fp32 (see ``layers``).  ``weights.from_jax_params``
 carries the reference's parameters across.
 
-The dense and ssm (mamba2) families are ported; the other families raise
-``NotImplementedError`` naming the family.
+The dense, moe (olmoe, qwen3-moe: a dense decoder whose MLP is the
+capacity-routed ``moe.moe_block``) and ssm (mamba2) families are ported; the
+other families raise ``NotImplementedError`` naming the family.
 """
 
 from __future__ import annotations
@@ -24,11 +25,12 @@ import torch
 from repro_torch.device import resolve_device
 from repro_torch.models import attention as A
 from repro_torch.models import layers as L
+from repro_torch.models import moe as M
 from repro_torch.models import ssm as S
 from repro_torch.models.config import ModelConfig
 
 Params = dict[str, Any]
-PORTED_FAMILIES = ("dense", "ssm")
+PORTED_FAMILIES = ("dense", "moe", "ssm")
 
 
 def require_ported(cfg: ModelConfig) -> None:
@@ -44,9 +46,10 @@ def init_params(
 
     Dense weights are N(0, 1) / sqrt(fan_in) (``wo``: 1 / sqrt(H * Dh)), the
     embedding N(0, 1) * 0.02, conv weights N(0, 1) * 0.5, biases zero and norm
-    scales one; the SSM's ``dt_bias`` is log(expm1(0.01)), ``a_log``
-    log(linspace(1, 16, H)) and ``d_skip`` one, as in
-    ``repro.models.transformer``.  The numbers come from ``generator``, which
+    scales one; the experts' ``w_in`` and ``w_gate`` (E, D, F) N(0, 1) /
+    sqrt(D) and ``w_out`` (E, F, D) N(0, 1) / sqrt(F); the SSM's ``dt_bias``
+    is log(expm1(0.01)), ``a_log`` log(linspace(1, 16, H)) and ``d_skip`` one,
+    as in ``repro.models.transformer``.  The numbers come from ``generator``, which
     must live on ``device``, and differ from ``jax.random``'s for the same
     seed: to compare with the reference, carry its parameters across with
     ``repro_torch.weights.from_jax_params``.
@@ -106,22 +109,40 @@ def init_params(
             attn["bq"] = zeros(cfg.n_heads * hd)
             attn["bk"] = zeros(cfg.n_kv_heads * hd)
             attn["bv"] = zeros(cfg.n_kv_heads * hd)
-        mlp = {"w_in": normal((d, f)), "w_out": normal((f, d))}
-        if cfg.mlp == "swiglu":
-            mlp["w_gate"] = normal((d, f))
-        layers.append({"ln1": ones(d), "ln2": ones(d), "attn": attn, "mlp": mlp})
+        layer = {"ln1": ones(d), "ln2": ones(d), "attn": attn}
+        if cfg.family == "moe":
+            e = cfg.moe_experts
+            # a 3-D expert weight's fan-in is its second axis, not its first
+            layer["moe"] = {
+                "w_router": normal((d, e)),
+                "w_in": normal((e, d, f), scale=1.0 / np.sqrt(d)),
+                "w_gate": normal((e, d, f), scale=1.0 / np.sqrt(d)),
+                "w_out": normal((e, f, d), scale=1.0 / np.sqrt(f)),
+            }
+        else:
+            layer["mlp"] = {"w_in": normal((d, f)), "w_out": normal((f, d))}
+            if cfg.mlp == "swiglu":
+                layer["mlp"]["w_gate"] = normal((d, f))
+        layers.append(layer)
     params["layers"] = layers
     return params
 
 
 # =================================================================== blocks
 def _decoder_block(cfg: ModelConfig, x, p, positions, cache):
-    """Pre-norm transformer block: self-attention + MLP."""
+    """Pre-norm transformer block: self-attention + MLP or MoE.
+
+    Returns (x, aux, new_cache); aux is the MoE's load-balance loss, None for
+    an MLP.
+    """
     h = L.rms_norm(x, p["ln1"], cfg.norm_eps)
     attn_out, new_cache = A.self_attention(h, p["attn"], cfg, positions=positions, cache=cache)
     x = x + attn_out
     h = L.rms_norm(x, p["ln2"], cfg.norm_eps)
-    return x + L.mlp_block(h, p["mlp"], cfg.mlp), new_cache
+    if cfg.family == "moe":
+        out, aux = M.moe_block(h, p["moe"], cfg)
+        return x + out, aux, new_cache
+    return x + L.mlp_block(h, p["mlp"], cfg.mlp), None, new_cache
 
 
 def _mamba_layer(cfg: ModelConfig, x, p, cache):
@@ -134,6 +155,9 @@ def _mamba_layer(cfg: ModelConfig, x, p, cache):
 def forward(params: Params, cfg: ModelConfig, batch: dict, cache: dict | None = None):
     """Returns (logits (B,S,V) fp32, aux scalar, new_cache).
 
+    aux is the sum of the layers' MoE load-balance losses, zero for the
+    other families.
+
     batch: {"tokens": (B, S) integer tensor}.  With a cache (``kvcache``),
     positions continue from ``cache["len"]`` and the cache is updated in
     place; the returned cache shares its tensors.
@@ -142,6 +166,7 @@ def forward(params: Params, cfg: ModelConfig, batch: dict, cache: dict | None = 
     tokens = batch["tokens"]
     x = L.embed_tokens(tokens, params["embed"])
     b, s = tokens.shape
+    aux = torch.zeros((), dtype=torch.float32, device=tokens.device)
     if cfg.family == "ssm":
         for i, p in enumerate(params["layers"]):
             layer_cache = {k: cache[k][i] for k in S.CACHE_KEYS} if cache is not None else None
@@ -156,12 +181,13 @@ def forward(params: Params, cfg: ModelConfig, batch: dict, cache: dict | None = 
             layer_cache = None
             if cache is not None:
                 layer_cache = {"k": cache["k"][i], "v": cache["v"][i], "len": cache["len"]}
-            x, _ = _decoder_block(cfg, x, p, positions, layer_cache)
+            x, layer_aux, _ = _decoder_block(cfg, x, p, positions, layer_cache)
+            if layer_aux is not None:
+                aux = aux + layer_aux
     new_cache = None
     if cache is not None:
         new_cache = {**cache, "len": cache["len"] + s}
     x = L.rms_norm(x, params["final_norm"], cfg.norm_eps)
     w_head = params["embed"].t() if cfg.tie_embeddings else params["lm_head"]
     logits = L.lm_head(x, w_head)
-    aux = torch.zeros((), dtype=torch.float32, device=logits.device)
     return logits, aux, new_cache

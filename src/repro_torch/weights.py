@@ -10,6 +10,10 @@ fp32: norm scales and the SSM's ``dt_bias``, ``a_log`` and ``d_skip``
 (``dt_bias`` is added and ``a_log`` exponentiated in fp32; rounding them to
 bf16 would move every decay).  Both packages then compute the same
 function, which is how the tests hold the port against the reference.
+
+The per-layer loop slices every stacked leaf on its first axis, whatever
+its rank: the moe family's router (L, D, E) and experts (L, E, D, F) and
+(L, E, F, D) arrive as one layer's (D, E), (E, D, F) and (E, F, D), in bf16.
 """
 
 from __future__ import annotations

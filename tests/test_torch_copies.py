@@ -42,7 +42,8 @@ DIVERGENT = {
     "core/forest.py": "predict's backend branch calls torch_predict, not jax_predict",
     "accelerators/torch_device.py": "the counterpart of accelerators/xla_cpu.py: times on the card",
     "accelerators/__init__.py": "registers torch_device only; the analytic platforms wait",
-    "checkpoint/manager.py": "torch tensors go to the host; restoring onto a mesh is not ported",
+    "checkpoint/manager.py": "torch tensors go to the host, bf16 as the reference's |V2 words; "
+                             "restoring onto a mesh is not ported",
     "api/oracle.py": "the backend default and branch go to torch_predict; a device field",
     "api/campaign.py": "a measurement runtime raises: repro.runtime is not ported",
     "api/hub.py": "journal compaction raises: repro.runtime is not ported",
