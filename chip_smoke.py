@@ -45,6 +45,8 @@ Phases, each failing loudly (an exception or a non-zero exit):
      block, inside this script only); ``moe_block`` at its decode and prefill
      shapes under ``torch.cuda.set_sync_debug_mode("error")``.
 
+   ``generate`` runs the prefill eager and the decode step as a captured
+   CUDA graph, replayed through no wrapper (decode launches neither kernel).
    Every launch counter is set to 0 just before ``generate`` and read just
    after; a slice's own kernel must show one launch per layer and the other
    kernel none.  The first generated token must be the prefill's argmax.  A
@@ -67,7 +69,14 @@ Phases, each failing loudly (an exception or a non-zero exit):
    the median of the three profiler sessions, among those that recorded the
    most kernels),
    with the back-to-back CUDA-event time per call beside it (``event_ms``),
-   which also counts the host whenever a call's dispatch outlasts its kernels;
+   which also counts the host whenever a call's dispatch outlasts its kernels.
+   The decode graph, per slice (``decode_graph``): one eager decode step
+   under ``torch.cuda.set_sync_debug_mode("error")``; one replay's logits
+   and cache against the eager step from the same state (bf16 bar); the
+   tokens of ``generate`` against an eager-decode ``generate``; decode ms per
+   step by CUDA events, eager and graph in turns; device-busy ms, idle share
+   and kernels of one replayed and one eager step (the profiler must record
+   the graph's kernels); capture seconds and peak memory;
 6. the paper's estimation pipeline with the card as its measured black-box
    platform (``estimate_on_card``): ``Campaign.run`` of ``repro_torch.api``
    on ``TorchDevicePlatform(device="cuda", dtype="bfloat16")`` for
@@ -80,8 +89,16 @@ Phases, each failing loudly (an exception or a non-zero exit):
    predictions on the card against the ``"numpy"`` backend's (bitwise), and
    network predictions for MLP stacks of dense blocks (rtol 1e-12).  The
    launch counters are set to 0 before it and read after it: the pipeline
-   runs none of the port's kernels (cuBLAS runs the timed GEMMs);
-7. the script's total seconds, a ``{"slice": ...}`` line per model, a
+   runs none of the port's kernels (cuBLAS runs the timed GEMMs); then
+   (``analytic_on_card``) the analytic platforms ``tpu_v5e`` (white box,
+   noise 0), ``ultratrail`` and ``vta`` with their torch hooks on the card,
+   bitwise against the numpy path for every layer type at 1, 64, 257 and
+   10,000 rows; a PR and a random ``ultratrail`` campaign with their MAPEs
+   on 1,000 held-out configs (simulated cycle counts, not speeds); and
+   ``estimate_decode_step`` for qwen2-1.5b with the oracle on the card
+   against the numpy backend (rtol 1e-12), and its seconds;
+7. the script's total seconds, a ``{"slice": ...}`` line per model (with its
+   ``decode_graph``), a
    ``{"kernels": [...]}`` line (``launches`` sums ``launches_by_slice``; the
    top-level times are at the kernel's first slice's shape and ``by_slice``
    holds each slice's; ``ms``, ``plain_ms`` and ``library_ms`` are device
@@ -143,6 +160,9 @@ MOE_FLOOR_FACTOR = 1.25
 # Phase 6: the campaigns' budget, the held-out set and the repeatability probe
 EST_SAMPLES, EST_HELD_OUT, EST_REPEAT = 500, 300, 20
 NET_RTOL = 1e-12  # networks on the card: index_add_ orders float64 sums freely
+# Phase 6b: rows per analytic-platform hook call, the ultratrail held-out set,
+# and the launcher estimate's campaign (the CLI's default; about 10 s on a CPU)
+ANALYTIC_ROWS, ANALYTIC_HELD_OUT, ESTIMATE_SAMPLES = (1, 64, 257, 10_000), 1000, 400
 
 BATCH, PROMPT, GEN, SEED = 4, 512, 32, 0
 LONG_PROMPT = 2048  # one sequence of 16 scan chunks: the split's serial pass and parallelism
@@ -187,7 +207,10 @@ def device_ms(fn, calls: int = 20, warmup: int = 3, sessions: int = 3) -> dict:
     call's of every session), which would time a call too fast; so each
     session traces one more call first and keeps only the ``calls`` after it
     (the profiler's warm-up step), and only the sessions that recorded the
-    most kernels are kept, of those the one with the median time.
+    most kernels are kept, of those the one with the median time.  The
+    warm-up call is synchronised before the window opens: a call that
+    returns before its kernels run (a CUDA-graph replay) would otherwise
+    spill them into it.
     """
     import torch
     from torch.profiler import ProfilerActivity, profile, schedule
@@ -201,8 +224,8 @@ def device_ms(fn, calls: int = 20, warmup: int = 3, sessions: int = 3) -> dict:
                      schedule=schedule(wait=0, warmup=1, active=calls, repeat=1)) as prof:
             for i in range(1 + calls):
                 fn()
-                if i == calls:
-                    torch.cuda.synchronize()
+                if i in (0, calls):  # a graph replay returns at once: keep its
+                    torch.cuda.synchronize()  # warm-up call's kernels out of the window
                 prof.step()
         kernels = [e for e in prof.key_averages() if e.device_type == torch.autograd.DeviceType.CUDA
                    and not e.key.startswith("ProfilerStep")]  # the schedule's step range, not a kernel
@@ -739,17 +762,16 @@ def serve_slice(arch: str) -> tuple[dict, int]:
 
     with torch.no_grad():
         cache = init_cache(cfg, BATCH, PROMPT + GEN, "cuda")
+        len_prompt = torch.full((), PROMPT, dtype=torch.int32, device="cuda")
 
-        def prefill():
-            cache["len"] = 0
+        def prefill():  # forward leaves the input cache's len (0) as it was
             return T.forward(params, cfg, {"tokens": tok_in}, cache)
 
         prefill_ms = cuda_time_ms(prefill, reps=5)
         step_tok = tokens[:, :1]
 
         def decode_run():
-            cache["len"] = PROMPT
-            c = cache
+            c = {**cache, "len": len_prompt}
             for _ in range(GEN - 1):
                 _, _, c = T.forward(params, cfg, {"tokens": step_tok}, c)
 
@@ -757,7 +779,7 @@ def serve_slice(arch: str) -> tuple[dict, int]:
         gen_ms = cuda_time_ms(lambda: generate(cfg, params, prompts, GEN, device="cuda"), reps=3, warmup=1)
 
         def decode_step():
-            return T.forward(params, cfg, {"tokens": step_tok}, {**cache, "len": PROMPT})
+            return T.forward(params, cfg, {"tokens": step_tok}, {**cache, "len": len_prompt})
 
         breakdown = {}
         for name, fn, wall_ms in (("prefill", prefill, prefill_ms), ("decode step", decode_step, decode_ms)):
@@ -777,6 +799,7 @@ def serve_slice(arch: str) -> tuple[dict, int]:
             moe_line["dropped_entries"]["decode_step"] = sum(int((~r["keep"]).sum()) for r in decode_routes)
             log(f"{arch} decode step routing: capacity {decode_routes[0]['capacity']}, dropped entries "
                 f"{moe_line['dropped_entries']['decode_step']} of {BATCH * cfg.moe_top_k * cfg.n_layers}")
+        graph_line = decode_graph(cfg, params, cache, step_tok, tokens, prompts, decode_ms, decode_run)
     if cfg.family == "moe":
         moe_line["sync_free"] = check_moe_sync_free(cfg, params["layers"][0]["moe"])
         moe_line["moe_block"] = time_moe(cfg, params["layers"][0]["moe"])
@@ -785,12 +808,135 @@ def serve_slice(arch: str) -> tuple[dict, int]:
         f"generate {BATCH}x{GEN}: {gen_ms:.3f} ms ({BATCH * GEN / gen_ms * 1e3:.1f} tok/s)")
     line = {"arch": arch, "batch": BATCH, "prompt": PROMPT, "gen": GEN, "prefill_ms": prefill_ms,
             "decode_ms_per_step": decode_ms, "generate_ms": gen_ms, "peak_gib": peak_gib,
-            "launches": launches, "profile": breakdown}
+            "launches": launches, "profile": breakdown, "decode_graph": graph_line}
     if moe_line is not None:
         line["moe"] = moe_line
     assert prefill_ok, f"{arch}: the {kernel} prefill disagrees with the plain route"
     assert reduced_ok, f"reduced {arch} on the card disagrees with the CPU"
     return line, launches[kernel]
+
+
+def eager_generate(cfg, params, prompts):
+    """``generate`` with every decode step eager, as on the CPU: the graph's yardstick."""
+    import torch
+
+    from repro_torch.models import transformer as T
+    from repro_torch.models.kvcache import init_cache
+    from repro_torch.train.steps import make_serve_step
+
+    cache = init_cache(cfg, BATCH, PROMPT + GEN, "cuda")
+    logits, _, cache = T.forward(params, cfg, {"tokens": torch.as_tensor(prompts, device="cuda")}, cache)
+    out, step = [logits[:, -1].argmax(-1)], make_serve_step(cfg)
+    for _ in range(GEN - 1):
+        nxt, cache = step(params, cache, {"tokens": out[-1][:, None]})
+        out.append(nxt)
+    return torch.stack(out, dim=1)
+
+
+def decode_graph(cfg, params, cache, step_tok, gen_tokens, prompts, eager_ms, eager_run) -> dict:
+    """The decode step as a CUDA graph, against the same step run eagerly.
+
+    ``cache`` holds the prefill of ``step_tok``'s prompts; ``gen_tokens`` is
+    ``generate``'s output (graph decode), ``eager_ms`` the eager decode time
+    per step and ``eager_run`` its timed run of ``GEN - 1`` eager steps.
+    Checks that an eager step synchronises nowhere (sync debug mode
+    "error"), and holds one replay's logits and cache against the eager step
+    from the same state (``BF16_TOL``); prints the tokens' agreement with an
+    eager ``generate``, decode ms per step eager and graph in turns, capture
+    seconds and peak memory, and a profile of one replayed and one eager step.
+    """
+    import torch
+
+    from repro_torch.models import transformer as T
+    from repro_torch.train.steps import capture_serve_step, make_serve_step, serve_step_in_place
+
+    def state_at(length: int) -> dict:
+        return {**{k: v.clone() for k, v in cache.items()},
+                "len": torch.full((), length, dtype=torch.int32, device="cuda")}
+
+    probe = state_at(PROMPT)
+    make_serve_step(cfg)(params, probe, {"tokens": step_tok})  # warm
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        make_serve_step(cfg)(params, probe, {"tokens": step_tok})
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    torch.cuda.synchronize()
+    del probe
+
+    graph_cache = state_at(PROMPT)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    step = capture_serve_step(cfg, params, graph_cache, {"tokens": step_tok})
+    torch.cuda.synchronize()
+    capture_s = time.perf_counter() - t0
+    capture_peak_gib = torch.cuda.max_memory_allocated() / 2**30
+
+    # one replay against the eager step from the state the replay starts from
+    eager_cache, tok1 = {k: v.clone() for k, v in graph_cache.items()}, step.tokens.clone()
+    step.replay()
+    logits_e, _, eager_new = T.forward(params, cfg, {"tokens": tok1}, eager_cache)
+    torch.cuda.synchronize()
+    logits_err = (step.logits - logits_e).abs().max().item()
+    cache_err = {k: (graph_cache[k].float() - eager_cache[k].float()).abs().max().item()
+                 for k in graph_cache if k != "len"}
+    lens = (int(graph_cache["len"]), int(eager_new["len"]))
+    replay_ok = (torch.allclose(step.logits, logits_e, **BF16_TOL) and lens == (PROMPT + 2,) * 2
+                 and all(torch.allclose(graph_cache[k].float(), eager_cache[k].float(), **BF16_TOL)
+                         for k in cache_err))
+    same_token = bool(torch.equal(step.tokens[:, 0], logits_e[:, -1].argmax(-1)))
+    log(f"{cfg.name} decode graph: captured in {capture_s:.2f} s (the warm-up step included), peak "
+        f"{capture_peak_gib:.2f} GiB; one replay vs the eager step from the same state: logits max abs "
+        f"{logits_err:.3e}, cache max abs {max(cache_err.values()):.3e}, len {lens}, same next token "
+        f"{same_token} (atol=rtol={BF16_TOL['atol']:g}) {'ok' if replay_ok else 'FAIL'}")
+    del eager_cache, logits_e, eager_new
+
+    eager_tokens = eager_generate(cfg, params, prompts)
+    differ = (eager_tokens != gen_tokens).any(dim=0).nonzero()
+    agreement = (eager_tokens == gen_tokens).float().mean().item()
+    first_diff = int(differ[0]) if len(differ) else None
+    log(f"{cfg.name} generate, graph decode vs eager decode: token agreement {agreement:.4f}, "
+        f"first differing step {first_diff}")
+
+    def graph_run():
+        graph_cache["len"].fill_(PROMPT)
+        step.tokens.copy_(step_tok)
+        for _ in range(GEN - 1):
+            step.replay()
+
+    # in turns: eager (measured before), graph, eager, graph
+    graph_ms = [cuda_time_ms(graph_run, reps=5, warmup=1) / (GEN - 1)]
+    eager_list = [eager_ms, cuda_time_ms(eager_run, reps=2, warmup=0) / (GEN - 1)]
+    graph_ms.append(cuda_time_ms(graph_run, reps=5, warmup=0) / (GEN - 1))
+
+    # one replayed step and one eager step of the same body, profiled; each
+    # call advances len by one, seven calls in all
+    graph_cache["len"].fill_(PROMPT)
+    prof_g = device_ms(step.replay, calls=1, warmup=1)
+    eager_state, tok_buf = state_at(PROMPT), step_tok.clone()
+    prof_e = device_ms(lambda: serve_step_in_place(cfg, params, eager_state, tok_buf), calls=1, warmup=1)
+    profiles = {}
+    for name, prof, wall in (("graph", prof_g, min(graph_ms)), ("eager", prof_e, min(eager_list))):
+        profiles[name] = {"wall_ms": wall, "device_busy_ms": prof["ms"], "idle_share": 1.0 - prof["ms"] / wall,
+                          "kernels": prof["kernels"], "sessions_kernels": prof["sessions_kernels"]}
+        log(f"profile {cfg.name} decode step ({name}): {wall:.3f} ms, device busy {prof['ms']:.3f} ms, "
+            f"idle share {1.0 - prof['ms'] / wall:.3f}, {prof['kernels']:g} kernels (sessions "
+            f"{prof['sessions_kernels']}); top: " + "; ".join(f"{k[:40]} {ms:.3f}" for k, ms in prof["top"][:5]))
+    kernels_match = prof_g["kernels"] == prof_e["kernels"]
+    log(f"{cfg.name} decode ms per step by CUDA events, in turns: eager {', '.join(f'{x:.3f}' for x in eager_list)}; "
+        f"graph {', '.join(f'{x:.3f}' for x in graph_ms)} ({min(eager_list) / min(graph_ms):.2f}x); "
+        f"torch.profiler kernels of a replay {prof_g['kernels']:g} vs the eager step's {prof_e['kernels']:g} "
+        f"({'match' if kernels_match else 'DIFFER'})")
+    assert replay_ok, f"{cfg.name}: the captured decode step disagrees with the eager step"
+    assert prof_g["kernels"] > 0, f"{cfg.name}: torch.profiler recorded no kernel of the replayed graph"
+    return {"sync_free_eager_step": True, "capture_s": capture_s, "capture_peak_gib": capture_peak_gib,
+            "replay_vs_eager": {"logits_max_abs": logits_err, "cache_max_abs": cache_err,
+                                "len": list(lens), "same_next_token": same_token},
+            "generate_token_agreement": agreement, "generate_first_differing_step": first_diff,
+            "decode_ms_per_step": {"eager": eager_list, "graph": graph_ms},
+            "profile": profiles, "profiler_kernels_match": kernels_match}
 
 
 def moe_inputs(cfg, tokens: int):
@@ -1060,6 +1206,100 @@ def estimate_on_card(smi: str) -> dict:
     }
 
 
+def analytic_on_card(smi: str) -> dict:
+    """Phase 6b: the analytic platforms with their torch hooks on the card.
+
+    Every layer type of ``tpu_v5e`` (white box, noise 0), ``ultratrail`` and
+    ``vta``: ``measure_batch`` through the hook on the card against the numpy
+    path (the same platform with ``predict_backend = "numpy"``), bitwise, at
+    ``ANALYTIC_ROWS`` random configs.  Then a PR and a random ``ultratrail``
+    campaign (seed 0) and their MAPEs on held-out configs, which are
+    simulated cycle counts (reproduction numbers, not speeds); and the
+    launcher's ``estimate_decode_step`` for qwen2-1.5b with the oracle on the
+    card, its ``"torch"`` prediction against ``"numpy"``'s (``NET_RTOL``).
+    """
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    from repro_torch.accelerators import torch_kernels
+    from repro_torch.api import Campaign, CampaignSpec, EstimatorHub, PerfOracle, get_platform
+    from repro_torch.configs import get_config
+    from repro_torch.core import prs
+    from repro_torch.core.forest import mape
+    from repro_torch.core.network import decompose
+    from repro_torch.launch.serve import ESTIMATE_LAYER_TYPES, ESTIMATE_PLATFORM, estimate_decode_step
+    from repro_torch.models.config import InputShape
+
+    hooks = {"tpu_v5e": torch_kernels.tpu_measure_batch, "ultratrail": torch_kernels.ultratrail_measure_batch,
+             "vta": torch_kernels.vta_measure_batch}
+    rng = np.random.default_rng(SEED)
+    cases, hook_ms = 0, {}
+    for name, kw in (("tpu_v5e", {"knowledge": "white"}), ("ultratrail", {}), ("vta", {})):
+        card = get_platform(name, device="cuda", **kw)
+        host = get_platform(name, device="cuda", **kw)
+        host.predict_backend = "numpy"
+        for lt in card.layer_types():
+            for n in ANALYTIC_ROWS:
+                batch = prs.sample_random_batch(card.param_space(lt), n, rng)
+                t0 = time.perf_counter()
+                got = hooks[name](card, lt, batch)
+                dt = time.perf_counter() - t0
+                want = host.measure_batch(lt, batch)
+                if got is None or got.tobytes() != want.tobytes():
+                    diff = np.max(np.abs(got - want) / want) if got is not None else None
+                    raise AssertionError(f"{name} {lt} n={n}: the torch hook on the card is not bitwise "
+                                         f"equal to numpy (max relative difference {diff})")
+                cases += 1
+                if n == ANALYTIC_ROWS[-1]:
+                    hook_ms[f"{name}/{lt}"] = dt * 1e3
+    log(f"analytic platforms on the card: {cases} (platform, layer type, n) cases, n in "
+        f"{ANALYTIC_ROWS}, torch hooks bitwise equal to numpy; host ms of one hook call at n = "
+        f"{ANALYTIC_ROWS[-1]}: " + ", ".join(f"{k} {v:.2f}" for k, v in hook_ms.items()))
+
+    platform = get_platform("ultratrail", device="cuda")
+    held_out = prs.sample_random_batch(platform.param_space("conv1d"), ANALYTIC_HELD_OUT,
+                                       np.random.default_rng(SEED + 1))
+    y_true = platform.measure_batch("conv1d", held_out)
+    ultratrail = {}
+    for sampling in ("pr", "random"):
+        t0 = time.perf_counter()
+        oracle = Campaign(CampaignSpec(platform="ultratrail", layer_types=("conv1d",), sampling=sampling,
+                                       n_samples=EST_SAMPLES, seed=SEED),
+                          platform=platform).run(device="cuda")
+        est = oracle.estimators["conv1d"]
+        ultratrail[sampling] = {"seconds": time.perf_counter() - t0, "widths": dict(est.widths),
+                                "mape": mape(y_true, oracle.predict("conv1d", held_out))}
+    log(f"ultratrail campaigns ({EST_SAMPLES} samples, seed {SEED}) on the card: widths "
+        f"{ultratrail['pr']['widths']}; PR-MAPE {ultratrail['pr']['mape']:.3f} %, random-MAPE "
+        f"{ultratrail['random']['mape']:.3f} % on {ANALYTIC_HELD_OUT} held-out configs (simulated cycles); "
+        f"seconds {ultratrail['pr']['seconds']:.2f} / {ultratrail['random']['seconds']:.2f}")
+
+    cfg = get_config("qwen2-1.5b")
+    with tempfile.TemporaryDirectory() as hub_dir:
+        t0 = time.perf_counter()
+        t_card = estimate_decode_step(cfg, BATCH, PROMPT + GEN, hub_dir=hub_dir, n_samples=ESTIMATE_SAMPLES,
+                                      device="cuda")
+        estimate_s = time.perf_counter() - t0
+        oracle = PerfOracle.load(EstimatorHub(hub_dir), ESTIMATE_PLATFORM, ESTIMATE_LAYER_TYPES, device="cuda")
+    blocks = decompose(cfg, InputShape(name="serve", seq_len=PROMPT + GEN, global_batch=BATCH, kind="decode"),
+                       dp=1, tp=1)
+    t_numpy, t_torch = (float(oracle.predict_networks([blocks], backend=b)[0]) for b in ("numpy", "torch"))
+    np.testing.assert_allclose([t_card, t_torch], [t_numpy, t_numpy], rtol=NET_RTOL, atol=0)
+    log(f"estimate_decode_step qwen2-1.5b batch {BATCH} seq {PROMPT + GEN} ({ESTIMATE_SAMPLES} samples, "
+        f"oracle on the card): {t_card * 1e3:.4f} ms a decode step of the simulated tpu_v5e[gray] in "
+        f"{estimate_s:.2f} s; numpy backend {t_numpy * 1e3:.4f} ms (relative difference "
+        f"{abs(t_card - t_numpy) / t_numpy:.2e}, rtol {NET_RTOL:g})")
+    torch.cuda.empty_cache()
+    return {"card": smi, "rows": list(ANALYTIC_ROWS), "hook_cases_bitwise": cases,
+            "hook_ms_at_max_rows": hook_ms,
+            "ultratrail": {"n_samples": EST_SAMPLES, "held_out": ANALYTIC_HELD_OUT, **ultratrail},
+            "estimate_decode_step": {"arch": "qwen2-1.5b", "n_samples": ESTIMATE_SAMPLES,
+                                     "simulated_ms": t_card * 1e3, "numpy_ms": t_numpy * 1e3,
+                                     "seconds": estimate_s}}
+
+
 def main() -> int:
     import torch
 
@@ -1118,6 +1358,7 @@ def main() -> int:
     for name in KERNELS:
         getattr(ops, name).launches = 0
     estimation = estimate_on_card(smi)
+    estimation["analytic"] = analytic_on_card(smi)
     estimation["kernel_launches"] = {name: getattr(ops, name).launches for name in KERNELS}
 
     # ---- 7. result lines

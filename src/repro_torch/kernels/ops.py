@@ -6,6 +6,9 @@ tensor it checks device, dtype, shape and contiguity, allocates the output,
 launches the hand-written kernel on PyTorch's current stream and raises if
 the launch is refused.  There is no fallback from the kernel to the plain
 version.  Each wrapper counts its kernel's launches in ``<wrapper>.launches``.
+A CUDA-graph replay (``generate``'s decode step) goes through no wrapper, so
+no counter counts it; the decode step launches neither kernel anyway (one
+query takes ``full_attention``, and mamba2 decodes by its recurrence).
 
 ``ops.py`` of the reference pads head dims and state widths to 128 lanes and
 sequences to block or chunk multiples for the TPU; the CUDA kernels mask the

@@ -16,7 +16,8 @@ The reference drops it (``repro/models/attention.py:153-158``), which is
 exact only at offset 0, the prefill that ``generate`` runs.
 
 The KV cache is updated in place: ``self_attention`` writes the new keys and
-values into the cache's tensors and returns a cache that shares them.
+values into the cache's tensors at device positions and returns a cache that
+shares them.
 """
 
 from __future__ import annotations
@@ -46,9 +47,13 @@ def out_proj(o: torch.Tensor, p: dict) -> torch.Tensor:
 
 # ---------------------------------------------------------------- cores
 def full_attention(
-    q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *, causal: bool, q_offset: int = 0
+    q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *, causal: bool,
+    q_offset: int | torch.Tensor = 0,
 ) -> torch.Tensor:
-    """Materialised-scores GQA attention.  q: (B,Sq,H,Dh), k/v: (B,Skv,KV,Dh)."""
+    """Materialised-scores GQA attention.  q: (B,Sq,H,Dh), k/v: (B,Skv,KV,Dh).
+
+    ``q_offset`` may be a 0-d device tensor (a decode step's cache length).
+    """
     b, sq, h, dh = q.shape
     skv, kvh = k.shape[1], k.shape[2]
     g = h // kvh
@@ -101,11 +106,15 @@ def chunked_attention(
     return o.permute(0, 3, 1, 2, 4).reshape(b, sq, h, dh).to(q.dtype)
 
 
-def attention_core(q, k, v, cfg: ModelConfig, *, causal: bool, q_offset: int = 0) -> torch.Tensor:
+def attention_core(q, k, v, cfg: ModelConfig, *, causal: bool,
+                   q_offset: int | torch.Tensor = 0) -> torch.Tensor:
     """The attention route, as the reference's ``_plain_core``.
 
     On one device the reference's ``attention_core`` always takes
     ``_plain_core`` (the ``kv_sharded`` policy), so the port has the one.
+    A tensor ``q_offset`` (a decode step's cache length) reaches only
+    ``full_attention``, where every single query goes; the other cores take
+    a host int.
     """
     if cfg.attention_impl == "xla_full" or q.shape[1] == 1:
         return full_attention(q, k, v, causal=causal, q_offset=q_offset)
@@ -129,7 +138,7 @@ def self_attention(
 ):
     """Self-attention with an optional KV cache, updated in place.
 
-    cache: {"k": (B, S_max, KV, Dh), "v": ..., "len": int} or None.
+    cache: {"k": (B, S_max, KV, Dh), "v": ..., "len": 0-d int tensor} or None.
     Returns (out-projected output (B, S, D), new cache or None).
     """
     q, k, v = qkv_proj(x, p, cfg)
@@ -140,14 +149,20 @@ def self_attention(
         k = L.apply_rope(k, positions, cfg.rope_theta)
     new_cache = None
     if cache is not None:
-        idx = cache["len"]
-        ck, cv = cache["k"], cache["v"]
+        ck, cv, idx = cache["k"], cache["v"], cache["len"]
         s = k.shape[1]
-        if idx + s > ck.shape[1]:
-            raise ValueError(f"cache of {ck.shape[1]} positions cannot take {s} more after {idx}")
-        ck[:, idx : idx + s] = k.to(ck.dtype)
-        cv[:, idx : idx + s] = v.to(cv.dtype)
-        new_cache = {"k": ck, "v": cv, "len": idx + s}
+        if s > 1:
+            # A cached prefill runs eager and once, and the flash kernel takes
+            # its causal offset as a host int, so it reads the length here.  A
+            # one-token decode step reads no tensor value on the host: a CUDA
+            # graph captures it (``generate`` checks the cache's room first).
+            idx = int(idx)
+            if idx + s > ck.shape[1]:
+                raise ValueError(f"cache of {ck.shape[1]} positions cannot take {s} more after {idx}")
+        pos = idx + torch.arange(s, device=ck.device)
+        ck.index_copy_(1, pos, k.to(ck.dtype))
+        cv.index_copy_(1, pos, v.to(cv.dtype))
+        new_cache = {"k": ck, "v": cv, "len": cache["len"] + s}
         # keys past the new length are masked by the causal offset
         o = attention_core(q, ck.to(q.dtype), cv.to(q.dtype), cfg, causal=True, q_offset=idx)
     else:

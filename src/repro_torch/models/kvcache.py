@@ -1,8 +1,10 @@
 """Decode-time caches of the dense, moe and ssm families, ported from ``repro.models.kvcache``.
 
 Each cache is a flat dict whose ``len``, the number of positions written, is
-a Python int (the reference keeps an int32 array; on one device every layer
-has the same length, and a host int costs no device sync).
+a 0-d int32 tensor on the cache's device, as the reference's int32 array is
+(on one device every layer has the same length).  A decode step reads it
+only on the device, so a CUDA graph can capture the step and replay it while
+``len`` advances in place (``train.steps.capture_serve_step``).
 
 * dense and moe: bf16 ``k`` and ``v`` of shape (L, B, S_max, KVH, D);
   ``self_attention`` updates them in place.
@@ -23,6 +25,10 @@ from repro_torch.models.config import ModelConfig
 CACHE_DTYPE = torch.bfloat16
 
 
+def _zero_len(device) -> torch.Tensor:
+    return torch.zeros((), dtype=torch.int32, device=device)
+
+
 def init_cache(cfg: ModelConfig, batch: int, max_len: int, device: torch.device | str) -> dict:
     """Zero cache for ``batch`` sequences of up to ``max_len`` positions."""
     if cfg.family == "ssm":
@@ -35,7 +41,7 @@ def init_cache(cfg: ModelConfig, batch: int, max_len: int, device: torch.device 
             "state": torch.zeros(
                 (*lead, cfg.ssm_heads, cfg.ssm_headdim, cfg.ssm_state), dtype=f32, device=device
             ),
-            "len": 0,
+            "len": _zero_len(device),
         }
     if cfg.family not in ("dense", "moe"):
         raise NotImplementedError(f"family {cfg.family!r} caches are not ported yet")
@@ -43,5 +49,5 @@ def init_cache(cfg: ModelConfig, batch: int, max_len: int, device: torch.device 
     return {
         "k": torch.zeros(shape, dtype=CACHE_DTYPE, device=device),
         "v": torch.zeros(shape, dtype=CACHE_DTYPE, device=device),
-        "len": 0,
+        "len": _zero_len(device),
     }

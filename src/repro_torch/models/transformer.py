@@ -159,8 +159,10 @@ def forward(params: Params, cfg: ModelConfig, batch: dict, cache: dict | None = 
     other families.
 
     batch: {"tokens": (B, S) integer tensor}.  With a cache (``kvcache``),
-    positions continue from ``cache["len"]`` and the cache is updated in
-    place; the returned cache shares its tensors.
+    positions continue from ``cache["len"]`` and the cache's buffers are
+    updated in place; the returned cache shares them, with a new ``len``
+    tensor (the input's ``len`` is left as it was).  With one token and a
+    cache, nothing here reads a tensor's value on the host.
     """
     require_ported(cfg)
     tokens = batch["tokens"]

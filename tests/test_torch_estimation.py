@@ -104,7 +104,7 @@ def _held_out(n=200, seed=1, space=((16, 256), (32, 768), (32, 768))):
 
 # ---------------------------------------------------------------- campaigns
 def test_the_platform_is_registered_and_the_spec_builds_it():
-    assert tapi.list_platforms() == ("torch_device",)
+    assert tapi.list_platforms() == ("torch_device", "tpu_v5e", "ultratrail", "vta")
     p = tapi.Campaign(tapi.CampaignSpec(
         platform="torch_device", platform_kwargs={"synthetic": True, "device": "cpu"})).platform
     assert isinstance(p.inner, TorchDevicePlatform) and p.knowledge == "black"

@@ -171,9 +171,9 @@ def test_self_attention_with_cache(impl, idx, s):
     )
     to, tc = TA.self_attention(
         tx, tp, tcfg, positions=torch.from_numpy(pos).long(),
-        cache={"k": tck, "v": tcv, "len": idx},
+        cache={"k": tck, "v": tcv, "len": torch.tensor(idx, dtype=torch.int32)},
     )
-    assert tc["len"] == int(jc["len"]) == idx + s
+    assert int(tc["len"]) == int(jc["len"]) == idx + s
     assert tc["k"] is tck  # updated in place
     np.testing.assert_allclose(_np(tc["k"]), _np(jc["k"]), **BF16)
     np.testing.assert_allclose(_np(tc["v"]), _np(jc["v"]), **BF16)

@@ -95,7 +95,7 @@ def test_entry_points_refuse_to_run_without_a_card(monkeypatch):
 def test_launcher_refuses_unported_paths(capsys):
     from repro_torch.launch import serve
 
-    for flag in ("--estimate", "--estimate-only", "--serve-oracle", "--fsck"):
+    for flag in ("--serve-oracle", "--fsck"):
         assert serve.main(["--arch", "qwen2-1.5b", flag, "--device", "cpu"]) != 0
         assert "not yet ported" in capsys.readouterr().err
 

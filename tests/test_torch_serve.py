@@ -63,7 +63,8 @@ def test_teacher_forced_logits_match(slice_setup):
         tl, aux, cache = TT.forward(params, cfg, {"tokens": torch.from_numpy(tokens).long()}, cache)
         assert tl.dtype == torch.float32 and tl.shape == (BATCH, tokens.shape[1], cfg.vocab)
         assert float(aux) == 0.0
-        assert cache["len"] == int(jcache["len"])
+        assert int(cache["len"]) == int(jcache["len"])
+        assert cache["len"].dtype == torch.int32 and cache["len"].shape == ()  # a tensor, like the reference's int32
         np.testing.assert_allclose(tl.numpy(), np.asarray(jl), **LOGITS)
 
 
@@ -106,5 +107,5 @@ def test_serve_step_continues_the_cache(slice_setup):
     cache = init_cache(cfg, BATCH, PROMPT + 2, "cpu")
     logits, _, cache = TT.forward(params, cfg, {"tokens": torch.from_numpy(prompts).long()}, cache)
     tok, cache = make_serve_step(cfg)(params, cache, {"tokens": logits[:, -1].argmax(-1)[:, None]})
-    assert tok.shape == (BATCH,) and cache["len"] == PROMPT + 1
+    assert tok.shape == (BATCH,) and int(cache["len"]) == PROMPT + 1
     assert torch.all(cache["k"][:, :, PROMPT + 1 :] == 0)

@@ -97,7 +97,8 @@ def test_teacher_forced_logits_match(slice_setup):
             jl, jaux, jcache = fwd(jparams, {"tokens": jnp.asarray(tokens)}, jcache)
             tl, aux, cache = TT.forward(params, cfg, {"tokens": torch.from_numpy(tokens).long()}, cache)
             assert tl.dtype == torch.float32 and tl.shape == (BATCH, tokens.shape[1], cfg.vocab)
-            assert cache["len"] == int(jcache["len"])
+            assert int(cache["len"]) == int(jcache["len"])
+            assert cache["len"].dtype == torch.int32 and cache["len"].shape == ()  # a tensor, like the reference's int32
             np.testing.assert_allclose(tl.numpy(), np.asarray(jl), **LOGITS)
             assert aux.dtype == torch.float32 and aux.shape == ()
             assert float(jaux) > 0
@@ -135,7 +136,7 @@ def test_greedy_generate_matches_reference(slice_setup):
 def test_moe_cache_is_the_dense_cache():
     cfg = reduced(get_config("olmoe-1b-7b"))
     cache = init_cache(cfg, 3, 40, "cpu")
-    assert cache.keys() == {"k", "v", "len"} and cache["len"] == 0
+    assert cache.keys() == {"k", "v", "len"} and int(cache["len"]) == 0
     for name in ("k", "v"):
         assert cache[name].shape == (cfg.n_layers, 3, 40, cfg.n_kv_heads, cfg.head_dim)
         assert cache[name].dtype == torch.bfloat16

@@ -99,7 +99,8 @@ def test_teacher_forced_logits_match(slice_setup, prompt, monkeypatch):
         tl, aux, cache = TT.forward(params, cfg, {"tokens": torch.from_numpy(tokens).long()}, cache)
         assert tl.dtype == torch.float32 and tl.shape == (BATCH, tokens.shape[1], cfg.vocab)
         assert float(aux) == 0.0
-        assert cache["len"] == int(jcache["len"])
+        assert int(cache["len"]) == int(jcache["len"])
+        assert cache["len"].dtype == torch.int32 and cache["len"].shape == ()  # a tensor, like the reference's int32
         np.testing.assert_allclose(tl.numpy(), np.asarray(jl), **LOGITS)
         for k in CACHE_KEYS:
             np.testing.assert_allclose(cache[k].numpy(), np.asarray(jcache["layers"][k]), **LOGITS, err_msg=k)
@@ -151,7 +152,7 @@ def test_serve_step_continues_the_cache(slice_setup):
     logits, _, cache = TT.forward(params, cfg, {"tokens": prompts[:, :-1]}, cache)
     state_after_prefill = cache["state"].clone()
     tok, cache = make_serve_step(cfg)(params, cache, {"tokens": prompts[:, -1:]})
-    assert tok.shape == (BATCH,) and cache["len"] == 30
+    assert tok.shape == (BATCH,) and int(cache["len"]) == 30
     assert not torch.equal(cache["state"], state_after_prefill)
     full, _, _ = TT.forward(params, cfg, {"tokens": prompts})
     assert torch.equal(tok, full[:, -1].argmax(-1))
