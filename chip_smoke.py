@@ -1,5 +1,5 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch port's serving paths and estimation pipeline on one NVIDIA GPU (the H100).
+"""Drive the PyTorch port's serving paths, estimation pipeline, runtime and service on one NVIDIA GPU (the H100).
 
   python3 chip_smoke.py
 
@@ -97,6 +97,25 @@ Phases, each failing loudly (an exception or a non-zero exit):
    on 1,000 held-out configs (simulated cycle counts, not speeds); and
    ``estimate_decode_step`` for qwen2-1.5b with the oracle on the card
    against the numpy backend (rtol 1e-12), and its seconds;
+6c. the measurement runtime and the oracle service on the card, the launch
+   counters set to 0 before and required to read 0 after: (a) phase 6's PR
+   campaign again through ``RuntimeSpec(workers=1)`` and through a pool of
+   two spawned workers, each with a journal and a trace: wall seconds, the
+   pool's start-up, the runtime's counts and rate, the card's used memory
+   over the run and each worker's allocator peaks, the two runs'
+   measurements of the same configs against each other, and each run's
+   PR-MAPE on phase 6's held-out configs; (b) ``ultratrail`` and
+   ``tpu_v5e[gray]`` serial and pooled, predictions bitwise; a serial
+   ``tpu_v5e[gray]`` run aborted by a fault plan and resumed from its journal
+   by the pool, re-measuring no journaled row, then the launcher's ``--fsck``
+   on that journal (exit 0); (c) ``python -m repro_torch.launch.serve
+   --serve-oracle`` over the hub of (a) and (b), oracles on the card: eight
+   client threads send predict requests, then ``predict_networks`` and
+   ``autotune``, held against direct oracle calls (layers bitwise, networks
+   within rtol 1e-12); latency, rate and batch sizes from ``stats``; SIGINT
+   must drain it to exit code 0; (d) each trace of (a) through
+   ``repro_torch.obs.report``.  Its findings are the ``"runtime"`` and
+   ``"service"`` fields of the ``{"estimation": ...}`` line;
 7. the script's total seconds, a ``{"slice": ...}`` line per model (with its
    ``decode_graph``), a
    ``{"kernels": [...]}`` line (``launches`` sums ``launches_by_slice``; the
@@ -113,6 +132,7 @@ from __future__ import annotations
 import contextlib
 import dataclasses
 import json
+import signal
 import subprocess
 import sys
 import time
@@ -163,6 +183,12 @@ NET_RTOL = 1e-12  # networks on the card: index_add_ orders float64 sums freely
 # Phase 6b: rows per analytic-platform hook call, the ultratrail held-out set,
 # and the launcher estimate's campaign (the CLI's default; about 10 s on a CPU)
 ANALYTIC_ROWS, ANALYTIC_HELD_OUT, ESTIMATE_SAMPLES = (1, 64, 257, 10_000), 1000, 400
+# Phase 6c: the pool's size; how long a probe holds its worker (so that each
+# of the pool's probes lands on a worker of its own); the submission ordinal
+# from which the interrupted run's chunks all crash; the service's client
+# threads, predict requests per thread and configs per request
+RT_WORKERS, PROBE_HOLD_S, ABORT_AT = 2, 0.5, 6
+SERVICE_CLIENTS, SERVICE_REQUESTS, SERVICE_CONFIGS = 8, 40, 16
 
 BATCH, PROMPT, GEN, SEED = 4, 512, 32, 0
 LONG_PROMPT = 2048  # one sequence of 16 scan chunks: the split's serial pass and parallelism
@@ -1191,7 +1217,7 @@ def estimate_on_card(smi: str) -> dict:
         f"{[round(float(x) * 1e3, 4) for x in oracles['pr'].predict_networks(nets)]}")
     torch.cuda.empty_cache()
     pr_est = oracles["pr"].estimators["dense"]
-    return {
+    return (held_out, y_true), {
         "platform": platform.cache_key(), "card": smi, "n_samples": EST_SAMPLES,
         "widths": dict(pr_est.widths), "n_sweep": pr_est.n_sweep, "sweep_ms": sweep_ms,
         "unique_measurements": stats["random"]["unique_measurements"],
@@ -1300,6 +1326,409 @@ def analytic_on_card(smi: str) -> dict:
                                      "seconds": estimate_s}}
 
 
+def _worker_probe(hold_s: float) -> dict:
+    """Runs in a pool worker: its pid, when its CUDA context was up (wall
+    clock, shared across processes), and its allocator's peaks so far."""
+    import os
+
+    import torch
+
+    torch.zeros(1, device="cuda")
+    ready = time.time()
+    time.sleep(hold_s)
+    return {"pid": os.getpid(), "ready_wall": ready,
+            "allocated_peak_mib": torch.cuda.max_memory_allocated() / 2**20,
+            "reserved_peak_mib": torch.cuda.max_memory_reserved() / 2**20}
+
+
+def _probe_pool(rt, workers: int) -> list:
+    """One probe per worker of a runtime's pool, all submitted at once."""
+    futures = [rt.executor._pool.submit(_worker_probe, PROBE_HOLD_S) for _ in range(workers)]
+    probes = [f.result(timeout=600) for f in futures]
+    if len({p["pid"] for p in probes}) != workers:
+        raise AssertionError(f"the probes did not reach {workers} distinct workers: {probes}")
+    return probes
+
+
+@contextlib.contextmanager
+def device_memory_peak():
+    """Peak of the card's used memory (every process's contexts and
+    allocations, ``cudaMemGetInfo``) over its level on entry, in MiB, polled
+    every 10 ms from a thread; the yielded dict gets ``peak_over_entry_mib``."""
+    import threading
+
+    import torch
+
+    def used() -> int:
+        free, total = torch.cuda.mem_get_info()
+        return total - free
+
+    out, stop = {}, threading.Event()
+    base, peak = used(), [0]
+
+    def poll() -> None:
+        while not stop.wait(0.01):
+            peak[0] = max(peak[0], used())
+
+    thread = threading.Thread(target=poll, daemon=True)
+    thread.start()
+    try:
+        yield out
+    finally:
+        stop.set()
+        thread.join(timeout=10)
+        out["peak_over_entry_mib"] = (max(peak[0], used()) - base) / 2**20
+
+
+def _journal_times(path) -> dict:
+    """Every measurement a journal holds: (layer type, params, row) -> seconds."""
+    from repro_torch.runtime import MeasurementJournal
+
+    times = {}
+    with MeasurementJournal(str(path)) as journal:
+        for record in journal.iter_records():
+            for row, sec in zip(record["rows"], record["seconds"]):
+                times[(record["layer_type"], tuple(record["params"]), tuple(row))] = sec
+    return times
+
+
+def runtime_on_card(smi: str, held: tuple, work: Path) -> dict:
+    """Phase 6c (a): the card's bf16 PR campaign through the runtime, serial
+    against a pool of ``RT_WORKERS`` processes, each journaled and traced.
+
+    The pool is built before the campaign and probed once (its start-up:
+    spawn, torch import, platform, CUDA context) and once after (each
+    worker's allocator peaks); the card's used memory is polled during each
+    run.  Both runs' measurements of the same configs are compared, and each
+    run's PR-MAPE is taken on phase 6's held-out configs (measured serially
+    there).  Then (d): each run's trace through ``repro_torch.obs.report``.
+    """
+    import numpy as np
+
+    from repro_torch import obs
+    from repro_torch.accelerators.torch_device import TorchDevicePlatform
+    from repro_torch.api import Campaign, CampaignSpec, MeasurementRuntime, RuntimeSpec
+    from repro_torch.core.forest import mape
+    from repro_torch.obs import report
+
+    held_out, y_true = held
+    runs = {}
+    for workers in (1, RT_WORKERS):
+        platform = TorchDevicePlatform(device="cuda", dtype="bfloat16")
+        trace = work / f"runtime_w{workers}.jsonl"
+        journal = work / f"torch_device_w{workers}.jsonl"
+        rt = MeasurementRuntime(RuntimeSpec(workers=workers, journal_path=str(journal)), platform)
+        try:
+            run = {"workers": workers}
+            if workers > 1:
+                t0 = time.time()
+                with device_memory_peak() as boot:
+                    probes = _probe_pool(rt, workers)
+                run["startup_s"] = max(p["ready_wall"] for p in probes) - t0
+                run["startup_device_memory_mib"] = boot["peak_over_entry_mib"]
+            # the serial run persists its estimators for the service, phase 6c (c)
+            campaign = Campaign(
+                CampaignSpec(platform="torch_device", layer_types=("dense",), sampling="pr",
+                             n_samples=EST_SAMPLES, seed=SEED,
+                             hub_dir=str(work / "hub") if workers == 1 else None),
+                platform=platform)
+            with obs.tracing(str(trace)), device_memory_peak() as mem:
+                t0 = time.perf_counter()
+                oracle = campaign.run(runtime=rt, device="cuda")
+                run["wall_s"] = time.perf_counter() - t0
+            if workers > 1:
+                run["workers_after"] = _probe_pool(rt, workers)
+        finally:
+            rt.close()
+        stats = campaign.last_run_stats
+        run.update({k: stats[k] for k in ("measured", "cached", "chunks", "retries", "throughput_cfg_s",
+                                          "exec_seconds")})
+        run["device_memory_peak_over_entry_mib"] = mem["peak_over_entry_mib"]
+        run["pr_mape"] = mape(y_true, oracle.predict("dense", held_out))
+        run["widths"] = dict(oracle.estimators["dense"].widths)
+        summary = report.summarize(obs.load_events(str(trace)))
+        run["trace_top_ms"] = {name: row["total_us"] / 1e3 for name, row in sorted(
+            summary["spans"].items(), key=lambda kv: -kv[1]["total_us"])[:8]}
+        runs[workers] = run
+        log(f"runtime workers={workers}: {run['wall_s']:.2f} s wall"
+            + (f" (+ {run['startup_s']:.2f} s pool start-up, device memory +"
+               f"{run['startup_device_memory_mib']:.0f} MiB)" if workers > 1 else "")
+            + f"; {run['measured']} measured, {run['cached']} cached, {run['chunks']} chunks, "
+            f"{run['throughput_cfg_s']:.1f} cfg/s; device memory peak +{run['device_memory_peak_over_entry_mib']:.0f} "
+            f"MiB; widths {run['widths']}; PR-MAPE {run['pr_mape']:.3f} %")
+        log(f"(d) trace of the workers={workers} run ({trace.name}) through repro_torch.obs.report:")
+        if report.main([str(trace), "--limit", "12"]) != 0:
+            raise AssertionError(f"repro_torch.obs.report found no events in {trace}")
+    serial, pooled = runs[1], runs[RT_WORKERS]
+    for p in pooled["workers_after"]:
+        log(f"  worker pid {p['pid']}: allocator peak {p['allocated_peak_mib']:.1f} MiB, "
+            f"reserved peak {p['reserved_peak_mib']:.1f} MiB")
+
+    a, b = _journal_times(work / "torch_device_w1.jsonl"), _journal_times(work / f"torch_device_w{RT_WORKERS}.jsonl")
+    common = sorted(set(a) & set(b))
+    rel = np.array([abs(b[k] - a[k]) / a[k] for k in common])
+    compare = {"configs": len(common), "median_rel": float(np.median(rel)),
+               "p90_rel": float(np.percentile(rel, 90)), "max_rel": float(rel.max()),
+               "share_over_10pct": float(np.mean(rel > 0.1))}
+    log(f"pooled vs serial measurements of the same {len(common)} configs: median relative difference "
+        f"{compare['median_rel']:.4f}, p90 {compare['p90_rel']:.4f}, max {compare['max_rel']:.4f}, "
+        f"{100 * compare['share_over_10pct']:.1f} % over 10 %; pooled / serial wall "
+        f"{pooled['wall_s'] / serial['wall_s']:.3f} (with start-up "
+        f"{(pooled['wall_s'] + pooled['startup_s']) / serial['wall_s']:.3f})")
+    return {"card": smi, "n_samples": EST_SAMPLES, "serial": serial, "pooled": pooled,
+            "pooled_over_serial_wall": pooled["wall_s"] / serial["wall_s"],
+            "pooled_with_startup_over_serial_wall": (pooled["wall_s"] + pooled["startup_s"]) / serial["wall_s"],
+            "pooled_vs_serial_measurements": compare}
+
+
+def deterministic_on_card(work: Path) -> dict:
+    """Phase 6c (b): ``ultratrail`` and ``tpu_v5e[gray]`` with their hooks on
+    the card, serial against pooled, bitwise.  The pooled ``tpu_v5e[gray]``
+    run is a resume: a serial run aborted by a fault plan (every chunk
+    submitted from ``ABORT_AT`` on crashes, so that chunk exhausts its
+    retries; a serial executor submits in a fixed order, so the abort always
+    falls after ``ABORT_AT`` journaled chunks) and resumed from its journal
+    by a pool.  Then the launcher's ``--fsck`` on that journal."""
+    import io
+
+    import numpy as np
+
+    from repro_torch.api import Campaign, CampaignSpec, FaultPlan, RuntimeSpec, get_platform
+    from repro_torch.checkpoint.manager import journal_path
+    from repro_torch.configs import get_config
+    from repro_torch.core import prs
+    from repro_torch.core.network import decompose
+    from repro_torch.launch import serve
+    from repro_torch.launch.serve import ESTIMATE_LAYER_TYPES
+    from repro_torch.models.config import InputShape
+    from repro_torch.runtime import FaultEvent, MeasurementError, MeasurementJournal
+    from repro_torch.runtime.faults import CHUNK_SITE
+
+    setups = {  # key -> (registry name, platform kwargs, layer types, samples)
+        "ultratrail": ("ultratrail", {}, ("conv1d",), EST_SAMPLES),
+        "tpu_v5e[gray]": ("tpu_v5e", {"knowledge": "gray", "noise": 0.001}, ESTIMATE_LAYER_TYPES,
+                          ESTIMATE_SAMPLES),
+    }
+    blocks = decompose(get_config("qwen2-1.5b"),
+                       InputShape(name="serve", seq_len=PROMPT + GEN, global_batch=BATCH, kind="decode"),
+                       dp=1, tp=1)
+
+    def run(key, workers, jdir, hub=None, **runtime):
+        """One campaign on the card through the runtime: (campaign, oracle, seconds)."""
+        name, kwargs, layer_types, n = setups[key]
+        c = Campaign(CampaignSpec(platform=name, layer_types=layer_types, n_samples=n, seed=SEED,
+                                  platform_kwargs={**kwargs, "device": "cuda"}, hub_dir=hub))
+        spec = RuntimeSpec(workers=workers, chunk_size=32, journal_path=journal_path(str(jdir)),
+                           chunk_timeout_s=600, **runtime)
+        t0 = time.perf_counter()
+        oracle = c.run(runtime=spec, device="cuda")
+        return c, oracle, time.perf_counter() - t0
+
+    def answers(oracle, key):
+        name, kwargs, layer_types, _ = setups[key]
+        platform = get_platform(name, device="cuda", **kwargs)
+        rng = np.random.default_rng(SEED + 3)
+        out = [oracle.predict(lt, prs.sample_random_batch(platform.param_space(lt), 500, rng))
+               for lt in layer_types]
+        if key == "tpu_v5e[gray]":
+            out.append(oracle.predict_networks([blocks], backend="numpy"))
+        return np.concatenate(out)
+
+    result = {}
+    for key in setups:
+        # the serial tpu_v5e[gray] run persists its estimators for the service, phase 6c (c)
+        serial, serial_oracle, serial_s = run(key, 1, work / f"{key}_w1",
+                                              hub=str(work / "hub") if key != "ultratrail" else None)
+        jdir = work / f"{key}_w{RT_WORKERS}"
+        if key == "tpu_v5e[gray]":
+            plan = FaultPlan([FaultEvent(CHUNK_SITE, i, "crash") for i in range(ABORT_AT, ABORT_AT + 64)])
+            try:
+                run(key, 1, jdir, fault_plan=plan, max_retries=2, retry_backoff_s=0.001)
+                raise AssertionError("the fault plan did not interrupt the run")
+            except MeasurementError as exc:
+                log(f"{key}: interrupted as planned ({exc})")
+            with MeasurementJournal(journal_path(str(jdir))) as journal:
+                durable = journal.fsck()
+            if durable["rows"] <= 0:
+                raise AssertionError(f"the interrupted run journaled nothing: {durable}")
+        pooled, pooled_oracle, pooled_s = run(key, RT_WORKERS, jdir)
+        want, got = answers(serial_oracle, key), answers(pooled_oracle, key)
+        if got.tobytes() != want.tobytes():
+            raise AssertionError(f"{key}: workers={RT_WORKERS} predictions are not bitwise the serial run's "
+                                 f"(max relative difference {np.max(np.abs(got - want) / want):.3e})")
+        s, p = serial.last_run_stats, pooled.last_run_stats
+        entry = {"serial_s": serial_s, "pooled_s": pooled_s, "predictions": int(want.size), "bitwise": True,
+                 "serial": {k: s[k] for k in ("measured", "chunks")},
+                 "pooled": {k: p[k] for k in ("measured", "replayed", "chunks")}}
+        if key == "tpu_v5e[gray]":
+            if p["replayed"] != durable["rows"] or p["measured"] + p["replayed"] != s["measured"]:
+                raise AssertionError(f"the resumed run re-measured journaled rows: {durable['rows']} journaled, "
+                                     f"resumed {p}, uninterrupted {s}")
+            out = io.StringIO()
+            with contextlib.redirect_stdout(out):
+                rc = serve.main(["--fsck", "--journal-dir", str(jdir)])
+            report = json.loads(out.getvalue())
+            if rc != 0:
+                raise AssertionError(f"--fsck on the resumed journal exited {rc}: {report}")
+            entry["interrupted"] = {"journaled_rows": durable["rows"], "journaled_records": durable["records"],
+                                    "fsck_exit": rc, "fsck": {k: report[k] for k in (
+                                        "records", "rows", "corrupt_lines", "torn_tail", "duplicate_keys")}}
+        result[key] = entry
+        log(f"{key} on the card: serial {serial_s:.2f} s ({s['measured']} measured), workers={RT_WORKERS} "
+            f"{pooled_s:.2f} s ({p['measured']} measured, {p['replayed']} replayed); {want.size} predictions "
+            f"bitwise equal" + (f"; resumed after {durable['rows']} journaled rows, re-measuring none; "
+                                 f"--fsck exit 0" if key == "tpu_v5e[gray]" else ""))
+    return result
+
+
+def service_on_card(smi: str, hub_dir: Path) -> dict:
+    """Phase 6c (c): ``--serve-oracle`` in a subprocess, oracles on the card.
+
+    Two rounds: ``SERVICE_CLIENTS`` threads, each with its own socket
+    client, send ``SERVICE_REQUESTS`` predict requests of
+    ``SERVICE_CONFIGS`` configs, alternating the hub's two platforms and
+    their layer types; the first round meets each oracle's forest engine
+    cold on the card, the second (other configs, so no result-cache hits)
+    warm.  Each request's latency is taken by its client.  Then
+    ``predict_networks`` and ``autotune``.  Every answer is held against
+    direct calls of the same oracles: layers bitwise, networks and
+    autotune's seconds within ``NET_RTOL``.  Batch sizes come from
+    ``stats``; SIGINT must drain the server and end it with exit code 0.
+    """
+    import os
+    import threading
+
+    import numpy as np
+
+    from repro_torch.api import EstimatorHub, PerfOracle, get_platform
+    from repro_torch.configs import get_config
+    from repro_torch.core import prs
+    from repro_torch.core.advisor import autotune
+    from repro_torch.core.blocks import Block
+    from repro_torch.core.network import decompose
+    from repro_torch.launch.serve import ESTIMATE_PLATFORM
+    from repro_torch.models.config import InputShape
+    from repro_torch.serving import OracleClient
+
+    platforms = ("torch_device", ESTIMATE_PLATFORM)
+    hub = EstimatorHub(str(hub_dir))
+    direct = {p: PerfOracle.load(hub, p, device="cuda") for p in platforms}
+    rng = np.random.default_rng(SEED + 4)
+    spaces = {"torch_device": get_platform("torch_device", device="cuda"),
+              ESTIMATE_PLATFORM: get_platform("tpu_v5e", knowledge="gray", device="cuda")}
+    rounds = {}
+    for name in ("cold", "warm"):
+        requests = []
+        for i in range(SERVICE_CLIENTS * SERVICE_REQUESTS):
+            platform = platforms[i % 2]
+            lts = direct[platform].layer_types()
+            lt = lts[(i // 2) % len(lts)]
+            cfgs = prs.sample_random_batch(spaces[platform].param_space(lt), SERVICE_CONFIGS, rng).to_dicts()
+            requests.append((platform, lt, [{k: int(v) for k, v in c.items()} for c in cfgs]))
+        rounds[name] = requests
+    stderr = open(hub_dir.parent / "service.stderr", "w+")
+    t_start = time.perf_counter()
+    proc = subprocess.Popen(
+        [sys.executable, "-m", "repro_torch.launch.serve", "--serve-oracle", "--hub-dir", str(hub_dir),
+         "--port", "0", "--warm-platforms", *platforms],
+        stdout=subprocess.PIPE, stderr=stderr, text=True,
+        env={**os.environ, "PYTHONPATH": os.pathsep.join(filter(None, [str(SRC), os.environ.get("PYTHONPATH")]))})
+    try:
+        line = proc.stdout.readline()
+        startup_s = time.perf_counter() - t_start
+        if not line.startswith("oracle server on "):
+            stderr.seek(0)
+            raise AssertionError(f"the service did not start: {line!r}\n{stderr.read()}")
+        address = ("127.0.0.1", int(line.split()[3].split(":")[1]))
+        log(f"service: {line.strip()} after {startup_s:.2f} s")
+        load = {}
+        for name, requests in rounds.items():
+            served: list = [None] * len(requests)
+            latency_ms = [0.0] * len(requests)
+            errors: list = []
+
+            def client_thread(k: int, requests: list, served: list, latency_ms: list) -> None:
+                try:
+                    with OracleClient(address=address, timeout=120) as client:
+                        for i in range(k, len(requests), SERVICE_CLIENTS):
+                            t = time.perf_counter()
+                            served[i] = client.predict(*requests[i])
+                            latency_ms[i] = (time.perf_counter() - t) * 1e3
+                except Exception as exc:  # noqa: BLE001 - reported below, then raised
+                    errors.append(repr(exc))
+
+            threads = [threading.Thread(target=client_thread, args=(k, requests, served, latency_ms))
+                       for k in range(SERVICE_CLIENTS)]
+            t0 = time.perf_counter()
+            for t in threads:
+                t.start()
+            for t in threads:
+                t.join(timeout=600)
+            wall = time.perf_counter() - t0
+            if errors or any(t.is_alive() for t in threads):
+                raise AssertionError(f"client threads failed: {errors}")
+            for (platform, lt, cfgs), got in zip(requests, served):
+                want = direct[platform].predict(lt, cfgs, backend="numpy")
+                if np.asarray(got).tobytes() != want.tobytes():
+                    raise AssertionError(f"served {platform} {lt} layers are not bitwise the oracle's")
+            load[name] = {"requests": len(requests), "wall_s": wall, "requests_per_s": len(requests) / wall,
+                          "p50_ms": float(np.percentile(latency_ms, 50)),
+                          "p99_ms": float(np.percentile(latency_ms, 99)), "max_ms": max(latency_ms)}
+            log(f"service, {name} round: {len(requests)} predict requests from {SERVICE_CLIENTS} clients in "
+                f"{wall:.2f} s ({load[name]['requests_per_s']:.1f} requests/s); client latency p50 "
+                f"{load[name]['p50_ms']:.3f} ms, p99 {load[name]['p99_ms']:.3f} ms, max {load[name]['max_ms']:.3f} ms")
+        decode = InputShape(name="serve", seq_len=PROMPT + GEN, global_batch=BATCH, kind="decode")
+        nets = {ESTIMATE_PLATFORM: [decompose(get_config(a), decode, dp=1, tp=1)
+                                    for a in ("qwen2-1.5b", "mamba2-780m", "olmoe-1b-7b")],
+                "torch_device": [[Block(kind="mlp", layers=(
+                    ("dense", {"tokens": t, "d_in": 1536, "d_out": 8960}),
+                    ("dense", {"tokens": t, "d_in": 8960, "d_out": 1536})), repeat=28)]
+                    for t in (16, 512, 4096)]}
+        shape = InputShape(name="serve", seq_len=4096, global_batch=8, kind="decode")
+        with OracleClient(address=address, timeout=120) as client:
+            net_rel = {}
+            for platform, ns in nets.items():
+                got = np.asarray(client.predict_networks(platform, ns))
+                want = direct[platform].predict_networks(ns, backend="numpy")
+                np.testing.assert_allclose(got, want, rtol=NET_RTOL, atol=0)
+                net_rel[platform] = float(np.max(np.abs(got - want) / want))
+            tuned = client.autotune(ESTIMATE_PLATFORM, "qwen2-1.5b", seq_len=4096, batch=8, chips=16)
+            numpy_oracle = dataclasses.replace(direct[ESTIMATE_PLATFORM], predict_backend="numpy")
+            ranked = autotune(numpy_oracle, get_config("qwen2-1.5b"), shape, chips=16)
+            if [(r["dp"], r["tp"], r["microbatches"]) for r in tuned] != \
+                    [(c.dp, c.tp, c.microbatches) for c, _ in ranked]:
+                raise AssertionError("served autotune ranks other candidates than the oracle")
+            pairs = [(r["seconds"], s) for r, (_, s) in zip(tuned, ranked) if r["seconds"] is not None]
+            np.testing.assert_allclose(*zip(*pairs), rtol=NET_RTOL, atol=0)
+            stats = client.stats()
+        proc.send_signal(signal.SIGINT)
+        rc = proc.wait(timeout=60)
+        if rc != 0:
+            stderr.seek(0)
+            raise AssertionError(f"the service exited {rc} on SIGINT:\n{stderr.read()}")
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait(timeout=60)
+        proc.stdout.close()
+        stderr.close()
+    metrics = stats["metrics"]
+    ep = metrics["endpoints"]["predict"]
+    result = {
+        "card": smi, "clients": SERVICE_CLIENTS, "configs_per_request": SERVICE_CONFIGS, "startup_s": startup_s,
+        "rounds": load,
+        "server_predict": {k: ep[k] for k in ("requests", "errors", "p50_ms", "p99_ms")},
+        "batches": metrics["batches"], "mean_batch_size": metrics["mean_batch_size"],
+        "batch_size_hist": metrics["batch_size_hist"], "result_cache": stats["result_cache"],
+        "network_max_rel": net_rel, "autotune_candidates": len(tuned), "sigint_exit": rc,
+    }
+    log(f"service on the card: server-side predict p50 {ep['p50_ms']:.3f} ms, p99 {ep['p99_ms']:.3f} ms over "
+        f"{ep['requests']} requests; {metrics['batches']} admission batches, "
+        f"mean size {metrics['mean_batch_size']:.2f}; layers bitwise, networks within rtol {NET_RTOL:g} "
+        f"({net_rel}); autotune {len(tuned)} candidates; SIGINT: drained, exit 0")
+    return result
+
+
 def main() -> int:
     import torch
 
@@ -1357,9 +1786,27 @@ def main() -> int:
 
     for name in KERNELS:
         getattr(ops, name).launches = 0
-    estimation = estimate_on_card(smi)
+    held, estimation = estimate_on_card(smi)
     estimation["analytic"] = analytic_on_card(smi)
     estimation["kernel_launches"] = {name: getattr(ops, name).launches for name in KERNELS}
+
+    # ---- 6c. the measurement runtime, the oracle service and the trace report
+    import tempfile
+
+    for name in KERNELS:
+        getattr(ops, name).launches = 0
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as tmp:
+        work = Path(tmp)
+        estimation["runtime"] = runtime_on_card(smi, held, work)
+        estimation["runtime"]["deterministic"] = deterministic_on_card(work)
+        estimation["service"] = service_on_card(smi, work / "hub")
+    launched = {name: getattr(ops, name).launches for name in KERNELS}
+    if any(launched.values()):
+        raise AssertionError(f"phase 6c launched the port's kernels: {launched}")
+    estimation["runtime"]["kernel_launches"] = launched
+    estimation["runtime"]["phase_seconds"] = time.perf_counter() - t0
+    log(f"phase 6c: {estimation['runtime']['phase_seconds']:.1f} s; kernel launches {launched}")
 
     # ---- 7. result lines
     sources = {

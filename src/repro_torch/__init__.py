@@ -17,9 +17,14 @@ Entry points (``models.transformer.init_params``, ``launch.serve.generate``,
 caller asks for ``device="cpu"``; without a card they raise
 (``device.resolve_device``).
 
-Ported so far: the serving paths of the dense family (qwen2-1.5b and the
-other dense configs) with the flash-attention kernel, and of the ssm family
-(mamba2-780m) with the SSD-scan kernel; the estimation pipeline's main path
-(``api``: campaign, cache, oracle, hub; ``core``; the measured platform
-``accelerators.torch_device``).  See ROADMAP.md for the rest.
+Ported so far: the serving paths of the dense (qwen2-1.5b and the other
+dense configs), ssm (mamba2-780m) and moe (olmoe-1b-7b) families, with the
+flash-attention and SSD-scan kernels and the decode step replayed as a CUDA
+graph on the card; the estimation pipeline (``api``: campaign, cache,
+oracle, hub; ``core``, the advisor among it), with the card as the measured
+platform ``accelerators.torch_device`` and the analytic platforms
+``tpu_v5e``, ``ultratrail`` and ``vta``; the measurement runtime
+(``runtime``: worker pool, retries, crash-safe journal), the oracle service
+(``serving``) and the trace report (``obs.report``).  See ROADMAP.md for the
+rest.
 """

@@ -23,10 +23,14 @@ from repro_torch.api.hub import EstimatorHub
 from repro_torch.api.oracle import PerfOracle
 from repro_torch.api.registry import get_platform, list_platforms, register_platform
 from repro_torch.core.batch import BlockBatch, ConfigBatch
-
-# The measurement runtime's names (RuntimeSpec, MeasurementRuntime, RunStats,
-# FaultPlan, HealthPolicy, DegradationReport) are not ported yet: ROADMAP.md,
-# queue 1, item 2.
+from repro_torch.runtime import (
+    DegradationReport,
+    FaultPlan,
+    HealthPolicy,
+    MeasurementRuntime,
+    RunStats,
+    RuntimeSpec,
+)
 
 __all__ = [
     "BlockBatch",
@@ -34,9 +38,15 @@ __all__ = [
     "Campaign",
     "CampaignSpec",
     "ConfigBatch",
+    "DegradationReport",
     "EstimatorHub",
+    "FaultPlan",
+    "HealthPolicy",
     "MeasurementCache",
+    "MeasurementRuntime",
     "PerfOracle",
+    "RunStats",
+    "RuntimeSpec",
     "get_platform",
     "list_platforms",
     "register_platform",

@@ -226,27 +226,66 @@ class Campaign:
             self.hub.save(self.platform.name, est)
         return est
 
+    def _resolve_runtime(self, runtime):
+        """Normalize ``run``'s runtime argument to (runtime, owned-by-us)."""
+        if runtime is None:
+            return None, False
+        from repro_torch.runtime import MeasurementRuntime, RuntimeSpec
+
+        if isinstance(runtime, RuntimeSpec):
+            if runtime.journal_path is None and self.hub is not None:
+                # Campaigns that persist estimators get crash-safe resume by
+                # default: the journal lives alongside the hub checkpoints.
+                # (journal_path="" opts out of journaling explicitly.)
+                from repro_torch.checkpoint.manager import journal_path
+
+                runtime = dataclasses.replace(
+                    runtime, journal_path=journal_path(self.hub.directory)
+                )
+            return MeasurementRuntime(runtime, self.platform.inner), True
+        return runtime, False
+
     @contextlib.contextmanager
     def runtime_session(self, runtime):
-        """The context of one stage's measurements; ``runtime`` must be None.
+        """Attach a measurement runtime to the cached platform for one stage.
 
-        The measurement runtime (worker pool, retries, crash-safe journal) is
-        not ported yet, so a runtime raises ``NotImplementedError`` rather
-        than being quietly ignored.  ``last_run_stats`` stays None.
+        Every cache miss inside the ``with`` block — config batches *and*
+        block batches — flows through the runtime's sharded scheduler (worker
+        pool, retries, crash-safe journal).  The journal is replayed into the
+        measurement cache on entry, so an interrupted stage resumes with zero
+        duplicate measurements; ``last_run_stats`` is snapshotted on exit.
+        Accepts a :class:`repro_torch.runtime.RuntimeSpec` (runtime owned and torn
+        down here), a ready :class:`~repro_torch.runtime.MeasurementRuntime`, or
+        ``None`` (no-op).
         """
-        if runtime is not None:
-            raise NotImplementedError(
-                "the measurement runtime (repro.runtime) is not ported yet; see "
-                "ROADMAP.md, queue 1, item 2 (the rest of the estimation pipeline)"
-            )
+        rt, owned = self._resolve_runtime(runtime)
+        # Always reset: a runtime-less stage after a runtime-backed one must
+        # not stamp the previous stage's stats onto the new result.
         self.last_run_stats = None
-        yield None
+        if rt is None:
+            yield None
+            return
+        self.platform.runtime = rt
+        try:
+            # Inside the try: an unreadable/corrupt-beyond-salvage journal
+            # must still tear down the freshly spawned worker pool.
+            rt.replay_into(self.cache)
+            yield rt
+        finally:
+            self.platform.runtime = None
+            self.last_run_stats = rt.stats.snapshot()
+            if owned:
+                rt.close()
 
     def run(self, runtime=None, trace=None, **oracle_kwargs) -> PerfOracle:
         """Train every layer type in the spec and return the oracle.
 
-        ``runtime``: must be None; the measurement runtime is not ported yet
-        (see :meth:`runtime_session`).
+        ``runtime``: a :class:`repro_torch.runtime.RuntimeSpec` (or a ready
+        :class:`~repro_torch.runtime.MeasurementRuntime`) executing all cache misses
+        through the sharded scheduler — worker pool, retries, crash-safe
+        journal.  The journal is replayed into the measurement cache first, so
+        an interrupted run resumes with zero duplicate measurements.  Results
+        are bitwise-identical to the serial path for any worker count.
 
         ``trace``: record a span trace of this run — a path (JSONL trace file,
         opened and closed here), a ready :class:`repro_torch.obs.Tracer`, or ``None``

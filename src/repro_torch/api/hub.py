@@ -196,21 +196,11 @@ class EstimatorHub:
         op calls it).  The latest checkpoint per slot is never touched, so
         reloads after ``gc`` are bitwise identical.
 
-        Returns ``{"steps_removed", "tmp_removed", "journal": None}``.  The
-        journal's compaction belongs to the measurement runtime, which is
-        not ported yet: with ``compact_journal`` and a journal in the hub,
-        ``gc`` raises ``NotImplementedError`` before it removes anything.
+        Returns ``{"steps_removed", "tmp_removed", "journal": compact stats
+        or None}``.
         """
         import shutil
 
-        from repro_torch.checkpoint.manager import journal_path
-
-        if compact_journal and os.path.exists(journal_path(self.directory)):
-            raise NotImplementedError(
-                "compacting the measurement journal needs the measurement "
-                "runtime (repro.runtime), which is not ported yet; see "
-                "ROADMAP.md, queue 1, item 2 (the rest of the estimation pipeline)"
-            )
         keep = self.keep if keep is None else keep
         steps_removed = tmp_removed = 0
         for platform in self.platforms():
@@ -227,10 +217,18 @@ class EstimatorHub:
                     if entry.endswith(".tmp"):
                         shutil.rmtree(os.path.join(slot, entry), ignore_errors=True)
                         tmp_removed += 1
+        journal_stats = None
+        if compact_journal:
+            from repro_torch.checkpoint.manager import journal_path
+            from repro_torch.runtime.journal import MeasurementJournal
+
+            path = journal_path(self.directory)
+            if os.path.exists(path):
+                journal_stats = MeasurementJournal(path).compact()
         return {
             "steps_removed": steps_removed,
             "tmp_removed": tmp_removed,
-            "journal": None,
+            "journal": journal_stats,
         }
 
     # ----------------------------------------------------------------- listing

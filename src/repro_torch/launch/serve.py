@@ -7,7 +7,10 @@
   PYTHONPATH=src python -m repro_torch.launch.serve --arch olmoe-1b-7b \
       --batch 4 --prompt-len 512 --gen 32
   PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen2-1.5b \
-      --estimate-only --device cpu --hub-dir /tmp/hub
+      --estimate-only --device cpu --hub-dir /tmp/hub --workers 2
+  PYTHONPATH=src python -m repro_torch.launch.serve --fsck --hub-dir /tmp/hub
+  PYTHONPATH=src python -m repro_torch.launch.serve --serve-oracle \
+      --hub-dir /tmp/hub --port 7070 --warm-platforms 'tpu_v5e[gray]'
 
 Ported from ``repro.launch.serve``: the model-run path for the dense, moe
 and ssm families, and the oracle estimate of a decode step.  It runs on
@@ -22,16 +25,23 @@ runs the hand-written SSD-scan kernel on the card whatever the flag says.
 the simulated TPU-v5e platform (``tpu_v5e[gray]``, an analytic model, not
 this machine), and ``--estimate-only`` stops there; ``--hub-dir`` reloads a
 persisted oracle instead of training one, and the oracle predicts on
-``--device``.  ``--workers`` > 1 and ``--journal-dir`` need the measurement
-runtime, which is not ported yet and raises.  ``--serve-oracle`` and
-``--fsck`` are not ported yet and exit non-zero.
+``--device``.  ``--workers`` > 1 measures the campaign through a pool of
+spawned worker processes, and ``--journal-dir`` (or the hub, by default)
+holds its crash-safe journal, from which a killed run resumes
+(``repro_torch.runtime``).  ``--fsck`` checks that journal and ``--repair``
+compacts it.
+
+``--serve-oracle`` turns the launcher into the estimation service: it loads
+the hub once and serves predict / predict_networks / autotune / stats over
+line-delimited JSON (``--port`` for TCP, ``--unix-socket`` for a local
+socket; see ``repro_torch.serving``), its oracles predicting on ``--device``;
+SIGINT drains the requests in flight (``--drain-s``) and exits 0.
 """
 
 from __future__ import annotations
 
 import argparse
 import dataclasses
-import sys
 import time
 
 import numpy as np
@@ -96,19 +106,18 @@ def estimate_decode_step(cfg, batch: int, seq_len: int, hub_dir: str | None = No
     Loads a persisted oracle from ``hub_dir`` when one is available there,
     otherwise trains a small campaign in-process (and persists it to
     ``hub_dir`` for next time, if given).  The oracle predicts on ``device``
-    (the card unless it is ``"cpu"``).  ``workers`` > 1 and ``journal_dir``
-    would run the campaign through the measurement runtime, which is not
-    ported yet: they raise.
+    (the card unless it is ``"cpu"``), and the campaign's platform, its pool
+    workers' too, runs its hooks there.
+
+    ``workers`` > 1 runs the campaign's measurements through the sharded
+    runtime (process pool + crash-safe journal; see :mod:`repro_torch.runtime`);
+    ``journal_dir`` pins the journal location (defaults to ``hub_dir`` when a
+    hub is given).  A run killed mid-campaign resumes from the journal.
     """
-    from repro_torch.api import Campaign, CampaignSpec, EstimatorHub, PerfOracle
+    from repro_torch.api import Campaign, CampaignSpec, EstimatorHub, PerfOracle, RuntimeSpec
     from repro_torch.core.network import decompose
     from repro_torch.models.config import InputShape
 
-    if workers > 1 or journal_dir:
-        raise NotImplementedError(
-            "the measurement runtime (repro.runtime) is not ported yet; see "
-            "ROADMAP.md, queue 1, item 2 (the rest of the estimation pipeline)"
-        )
     oracle = None
     if hub_dir:
         hub = EstimatorHub(hub_dir)
@@ -122,18 +131,141 @@ def estimate_decode_step(cfg, batch: int, seq_len: int, hub_dir: str | None = No
             platform_kwargs={"knowledge": "gray", "noise": 0.001, "device": device},
             hub_dir=hub_dir,
         )
-        oracle = Campaign(spec).run(device=device)
+        runtime = None
+        if workers > 1 or journal_dir:
+            from repro_torch.checkpoint.manager import journal_path
+
+            runtime = RuntimeSpec(
+                workers=workers,
+                journal_path=journal_path(journal_dir) if journal_dir else None,
+            )
+        campaign = Campaign(spec)
+        oracle = campaign.run(runtime=runtime, device=device)
+        if campaign.last_run_stats is not None:
+            s = campaign.last_run_stats
+            print(f"runtime: {s['measured']:.0f} measured, {s['cached']:.0f} cached, "
+                  f"{s['replayed']:.0f} replayed over {s['chunks']:.0f} chunks "
+                  f"({s['throughput_cfg_s']:.0f} cfg/s, workers={workers})")
     shape = InputShape(name="serve", seq_len=seq_len, global_batch=batch, kind="decode")
     blocks = decompose(cfg, shape, dp=1, tp=1)
     return oracle.predict_network(blocks)
 
 
-_NOT_PORTED = ("serve_oracle", "fsck")
+def _metrics_reporter(server, interval_s: float):
+    """Daemon loop: print a one-line metrics digest every ``interval_s``."""
+    import threading
+
+    from repro_torch import obs
+
+    stop = threading.Event()
+
+    def loop() -> None:
+        while not stop.wait(interval_s):
+            snap = server.metrics.snapshot()
+            reqs = sum(ep["requests"] for ep in snap["endpoints"].values())
+            errs = sum(ep["errors"] for ep in snap["endpoints"].values())
+            counters = obs.metrics().snapshot()["counters"]
+            print(f"[metrics] {reqs} requests ({errs} errors), "
+                  f"{snap['batches']} batches "
+                  f"(mean {snap['mean_batch_size']:.1f}), "
+                  f"cache {snap['gauges'].get('result_cache')}, "
+                  f"counters {counters}", flush=True)
+
+    t = threading.Thread(target=loop, name="metrics-reporter", daemon=True)
+    t.start()
+    return stop
+
+
+def fsck_journal(args) -> int:
+    """Check (and with ``--repair`` compact) a measurement journal (``--fsck``).
+
+    Prints the :meth:`repro_torch.runtime.MeasurementJournal.fsck` report as
+    JSON; the exit code is 0 when the journal is healthy, 1 when issues were
+    found (and left in place — rerun with ``--repair`` to compact them away).
+    """
+    import json
+
+    from repro_torch.checkpoint.manager import journal_path
+    from repro_torch.runtime import MeasurementJournal
+
+    where = args.journal_dir or args.hub_dir
+    if not where:
+        raise SystemExit("--fsck requires --journal-dir or --hub-dir")
+    journal = MeasurementJournal(journal_path(where))
+    try:
+        report = journal.fsck(repair=args.repair)
+    finally:
+        journal.close()
+    print(json.dumps(report, indent=2, sort_keys=True))
+    checked = report.get("after", report)
+    issues = (
+        checked["corrupt_lines"]
+        + checked["duplicate_keys"]
+        + (1 if checked["torn_tail"] else 0)
+    )
+    return 1 if issues else 0
+
+
+def serve_oracle(args) -> None:
+    """Run the oracle estimation service until interrupted (``--serve-oracle``).
+
+    The hub's oracles predict on ``--device``: the card unless it is ``cpu``;
+    without a card the server refuses to start.
+    """
+    import contextlib
+    import os
+
+    from repro_torch import obs
+    from repro_torch.serving import OracleServer, OracleSocketServer, ServeSpec
+
+    if not args.hub_dir:
+        raise SystemExit("--serve-oracle requires --hub-dir (a trained EstimatorHub)")
+    resolve_device(args.device)
+    spec = ServeSpec(
+        hub_dir=args.hub_dir,
+        platforms=tuple(args.warm_platforms or ()),
+        window_s=args.window_ms / 1e3,
+        cache_capacity=args.cache_capacity,
+        predict_backend=args.predict_backend,
+        device=args.device,
+        max_queue=args.max_queue if args.max_queue > 0 else None,
+        default_deadline_s=(
+            args.deadline_ms / 1e3 if args.deadline_ms > 0 else None
+        ),
+    )
+    server = OracleServer(spec=spec)
+    sock = OracleSocketServer(
+        server, host=args.host, port=args.port, unix_socket=args.unix_socket
+    )
+    where = sock.address if args.unix_socket else "%s:%d" % sock.address
+    trace_ctx = contextlib.nullcontext()
+    if args.trace_dir:
+        trace_path = os.path.join(args.trace_dir, f"serve-{os.getpid()}.jsonl")
+        trace_ctx = obs.tracing(trace_path)
+        print(f"tracing to {trace_path} "
+              f"(render: python -m repro_torch.obs.report {trace_path})")
+    reporter = None
+    if args.metrics_interval and args.metrics_interval > 0:
+        reporter = _metrics_reporter(server, args.metrics_interval)
+    print(f"oracle server on {where} (hub: {args.hub_dir}, "
+          f"platforms: {server.platforms()['hub']}, "
+          f"window: {args.window_ms:.1f} ms, device: {args.device})", flush=True)
+    try:
+        with trace_ctx:
+            sock.serve_forever()
+    except KeyboardInterrupt:
+        pass
+    finally:
+        if reporter is not None:
+            reporter.set()
+        # Graceful drain: in-flight requests are answered (bounded by
+        # --drain-s) before the listening socket goes away.
+        sock.close(drain_s=args.drain_s)
 
 
 def main(argv: list[str] | None = None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
-    ap.add_argument("--arch", required=True)
+    ap.add_argument("--arch")
     ap.add_argument("--reduced", action="store_true")
     ap.add_argument("--batch", type=int, default=4)
     ap.add_argument("--prompt-len", type=int, default=32)
@@ -149,30 +281,65 @@ def main(argv: list[str] | None = None) -> int:
     ap.add_argument("--hub-dir", default=None,
                     help="EstimatorHub directory to reload/persist the oracle")
     ap.add_argument("--workers", type=int, default=1,
-                    help="measurement worker processes (> 1 needs the runtime: not ported)")
+                    help="measurement worker processes for the estimate campaign "
+                         "(>1 enables the sharded runtime)")
     ap.add_argument("--journal-dir", default=None,
-                    help="measurement journal directory (needs the runtime: not ported)")
-    for flag in _NOT_PORTED:
-        ap.add_argument("--" + flag.replace("_", "-"), action="store_true",
-                        help="not yet ported")
+                    help="directory for the crash-safe measurement journal "
+                         "(interrupted estimate campaigns resume from it)")
+    ap.add_argument("--serve-oracle", action="store_true",
+                    help="serve oracle estimates over NDJSON sockets instead of "
+                         "running a model (see repro_torch.serving)")
+    ap.add_argument("--host", default="127.0.0.1",
+                    help="bind address for --serve-oracle TCP mode")
+    ap.add_argument("--port", type=int, default=7070,
+                    help="TCP port for --serve-oracle (0 = ephemeral)")
+    ap.add_argument("--unix-socket", default=None,
+                    help="serve on a unix socket path instead of TCP")
+    ap.add_argument("--warm-platforms", nargs="*", default=None,
+                    help="platforms to load eagerly at server startup")
+    ap.add_argument("--window-ms", type=float, default=2.0,
+                    help="admission-batching window in milliseconds")
+    ap.add_argument("--cache-capacity", type=int, default=65536,
+                    help="LRU result-cache capacity (entries)")
+    ap.add_argument("--predict-backend", default=None, choices=("torch", "numpy"),
+                    help="inference engine for served oracles (default: torch, on --device)")
+    ap.add_argument("--trace-dir", default=None,
+                    help="write a span trace (serve-<pid>.jsonl) into this "
+                         "directory; render with python -m repro_torch.obs.report")
+    ap.add_argument("--metrics-interval", type=float, default=0.0,
+                    help="print a metrics digest every N seconds (0 = off)")
+    ap.add_argument("--max-queue", type=int, default=8192,
+                    help="admission-queue bound; overflowing requests get an "
+                         "explicit overload response (0 = unbounded)")
+    ap.add_argument("--deadline-ms", type=float, default=0.0,
+                    help="default per-request deadline in milliseconds; "
+                         "requests may override with their own deadline_ms "
+                         "(0 = no deadline)")
+    ap.add_argument("--drain-s", type=float, default=5.0,
+                    help="graceful-shutdown drain budget: seconds to wait for "
+                         "in-flight requests before closing the socket")
+    ap.add_argument("--fsck", action="store_true",
+                    help="check the measurement journal (torn tail, corrupt "
+                         "lines, duplicate keys) and exit; nonzero on issues")
+    ap.add_argument("--repair", action="store_true",
+                    help="with --fsck: compact the journal to drop corruption")
     args = ap.parse_args(argv)
 
-    for flag in _NOT_PORTED:
-        if getattr(args, flag):
-            print(f"--{flag.replace('_', '-')} is not yet ported", file=sys.stderr)
-            return 2
+    if args.fsck:
+        return fsck_journal(args)
+    if args.serve_oracle:
+        serve_oracle(args)
+        return 0
+    if not args.arch:
+        ap.error("--arch is required unless --serve-oracle or --fsck is given")
     cfg = get_config(args.arch)
     if args.reduced:
         cfg = reduced(cfg)
     if args.estimate or args.estimate_only:
-        try:
-            t_step = estimate_decode_step(
-                cfg, args.batch, args.prompt_len + args.gen, hub_dir=args.hub_dir,
-                workers=args.workers, journal_dir=args.journal_dir, device=args.device,
-            )
-        except NotImplementedError as e:
-            print(e, file=sys.stderr)
-            return 2
+        t_step = estimate_decode_step(
+            cfg, args.batch, args.prompt_len + args.gen, hub_dir=args.hub_dir,
+            workers=args.workers, journal_dir=args.journal_dir, device=args.device,
+        )
         print(f"oracle estimate (tpu_v5e[gray], dp=1 tp=1): "
               f"{t_step*1e3:.3f} ms/decode-step "
               f"(~{args.batch / max(t_step, 1e-12):.0f} tok/s)")

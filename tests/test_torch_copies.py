@@ -1,7 +1,8 @@
 """The estimation pipeline's copies in the port stay copies.
 
 Most of the port's estimation modules are the reference's jax-free modules
-with ``repro.`` rewritten to ``repro_torch.``; each is pinned here to its
+with the package ``repro`` renamed ``repro_torch`` (``repro.x`` and ``from
+repro import x`` alike); each is pinned here to its
 original, so a change to either side shows as a failing test and not as a
 quiet drift.  The analytic platforms in ``PATCHED`` are copies with one more
 rewrite (their hooks import ``torch_kernels`` where the reference's import
@@ -41,6 +42,22 @@ VERBATIM = (
     "accelerators/base.py",
     "checkpoint/__init__.py",
     "core/advisor.py",
+    "api/campaign.py",
+    "api/hub.py",
+    "obs/report.py",
+    "runtime/__init__.py",
+    "runtime/stats.py",
+    "runtime/health.py",
+    "runtime/faults.py",
+    "runtime/journal.py",
+    "runtime/workers.py",
+    "runtime/scheduler.py",
+    "runtime/testing.py",
+    "serving/__init__.py",
+    "serving/batcher.py",
+    "serving/cache.py",
+    "serving/metrics.py",
+    "serving/transport.py",
 )
 
 _STATELESS = (
@@ -65,16 +82,16 @@ DIVERGENT = {
     "checkpoint/manager.py": "torch tensors go to the host, bf16 as the reference's |V2 words; "
                              "restoring onto a mesh is not ported",
     "api/oracle.py": "the backend default and branch go to torch_predict; a device field",
-    "api/campaign.py": "a measurement runtime raises: repro.runtime is not ported",
-    "api/hub.py": "journal compaction raises: repro.runtime is not ported",
-    "api/__init__.py": "exports all but the runtime's names",
+    "api/__init__.py": "its docstring's example campaign runs torch_device, on the card",
+    "serving/server.py": "a device field; backends torch or numpy, and network cache keys "
+                         "scoped for torch with a log target (rtol 1e-12, not bitwise)",
 }
 
-PACKAGES = ("api", "obs", "core", "accelerators", "checkpoint")
+PACKAGES = ("api", "obs", "core", "accelerators", "checkpoint", "runtime", "serving")
 
 
 def _as_port(source: str) -> str:
-    return re.sub(r"\brepro\.", "repro_torch.", source)
+    return re.sub(r"\brepro(?=\.|\s+import\b)", "repro_torch", source)
 
 
 @pytest.mark.parametrize("module", VERBATIM)

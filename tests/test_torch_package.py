@@ -89,15 +89,27 @@ def test_entry_points_refuse_to_run_without_a_card(monkeypatch):
         serve.generate(cfg, params, prompts, 2)
     with pytest.raises(RuntimeError, match="device='cpu'"):
         serve.main(["--arch", "qwen2-1.5b", "--reduced"])
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        serve.main(["--serve-oracle", "--hub-dir", "unused", "--port", "0"])
     assert serve.generate(cfg, params, prompts, 2, device="cpu").shape == (1, 2)
 
 
-def test_launcher_refuses_unported_paths(capsys):
+def test_launcher_refuses_unported_paths(tmp_path, capsys):
+    """``--fsck`` and ``--serve-oracle`` are ported: they need no ``--arch``,
+    refuse to run without a journal or hub to read, and ``--fsck`` reports an
+    absent journal as clean.  ``--serve-oracle`` without a card refuses to
+    start; ``tests/test_torch_serving.py`` runs it on the CPU."""
     from repro_torch.launch import serve
 
-    for flag in ("--serve-oracle", "--fsck"):
-        assert serve.main(["--arch", "qwen2-1.5b", flag, "--device", "cpu"]) != 0
-        assert "not yet ported" in capsys.readouterr().err
+    with pytest.raises(SystemExit, match="--fsck requires --journal-dir or --hub-dir"):
+        serve.main(["--fsck"])
+    with pytest.raises(SystemExit, match="--serve-oracle requires --hub-dir"):
+        serve.main(["--serve-oracle", "--device", "cpu"])
+    assert serve.main(["--fsck", "--hub-dir", str(tmp_path)]) == 0
+    assert '"exists": false' in capsys.readouterr().out
+    with pytest.raises(SystemExit):
+        serve.main(["--estimate-only"])
+    assert "--arch is required unless --serve-oracle or --fsck is given" in capsys.readouterr().err
 
 
 @pytest.mark.parametrize("arch", ["qwen2-1.5b", "mamba2-780m"])

@@ -15,6 +15,10 @@ which its jax predict backend needs and this jax has under another name
 (as in ``test_torch_estimation.py``).
 """
 
+import functools
+import os
+import re
+
 import numpy as np
 import pytest
 
@@ -286,10 +290,22 @@ def test_estimate_only_prints_the_reference_number_from_the_same_hub(tmp_path, c
 
 
 @pytest.mark.parametrize("flags", [["--workers", "2"], ["--journal-dir", "j"]])
-def test_estimate_through_the_runtime_is_refused(flags, capsys):
+def test_estimate_through_the_runtime_is_refused(flags, monkeypatch, tmp_path, capsys):
+    """The launcher's runtime flags run the estimate's campaign through the
+    runtime (they were refused until it was ported): a pool of two workers
+    on the CPU, or a journal in ``j``.  The estimate is the reference's, and
+    the ``runtime:`` line counts what was measured."""
+    monkeypatch.chdir(tmp_path)
+    monkeypatch.setattr(tserve, "estimate_decode_step",
+                        functools.partial(tserve.estimate_decode_step, n_samples=60))
     rc = tserve.main(["--arch", "qwen2-1.5b", "--estimate-only", "--device", "cpu", *flags])
-    assert rc == 2
-    assert "ROADMAP.md, queue 1, item 2" in capsys.readouterr().err
+    assert rc == 0
+    out = capsys.readouterr().out
+    want = jserve.estimate_decode_step(jget_config("qwen2-1.5b"), 4, 48, n_samples=60)
+    assert f"oracle estimate (tpu_v5e[gray], dp=1 tp=1): {want * 1e3:.3f} ms/decode-step" in out
+    workers = flags[1] if flags[0] == "--workers" else "1"
+    assert re.search(rf"runtime: [1-9][0-9]* measured, .* chunks .*workers={workers}\)", out), out
+    assert os.path.exists(tmp_path / "j" / "measurements.jsonl") == (flags[0] == "--journal-dir")
 
 
 @pytest.mark.parametrize("flag", ["--estimate-only", "--estimate"])
