@@ -9,13 +9,16 @@ Phases, each failing loudly (an exception or a non-zero exit):
    script; print the card's name and power limit as nvidia-smi gives them;
 2. build the CUDA kernels from ``src/repro_torch/kernels/csrc`` with nvcc,
    one nvcc per source, all started together, and print ptxas's register and
-   spill lines;
+   spill lines; then (2b) run ``python -m repro_torch.analysis src/repro_torch``,
+   the port's repro-lint with every rule, which must report 0 findings;
 3. hold each kernel against its plain PyTorch version on the card:
-   flash attention at twelve shapes (among them the qwen2-1.5b and
-   olmoe-1b-7b prefill shapes), every one in bf16 (the tensor-core
-   kernel) and the fp32 ones in fp32 too (the CUDA-core kernel), and its
-   refusal of a misaligned bf16 input; the SSD scan, for y and the final state, at
-   the three shapes of ``tests/test_kernels.py``, the mamba2-780m slice shape,
+   flash attention at sixteen shapes (among them the prefill shapes of
+   qwen2-1.5b, olmoe-1b-7b, zamba2-2.7b at head dim 80, the kernel's padded
+   96-column tile, qwen2-vl-2b and whisper-medium at head dim 64), every one
+   in bf16 (the tensor-core kernel) and the fp32 ones in fp32 too (the
+   CUDA-core kernel), and its refusal of a misaligned bf16 input; the SSD
+   scan, for y and the final state, at the three shapes of
+   ``tests/test_kernels.py``, the mamba2-780m and zamba2-2.7b slice shapes,
    a ragged S with a nonzero initial state, the reduced shape, a part-filled
    tile of state rows, chunk 64 against chunk 128, one bf16 chunk (S below
    the chunk), a long chain of 16 chunks from a unit-scale initial state
@@ -43,17 +46,36 @@ Phases, each failing loudly (an exception or a non-zero exit):
      with the flash route's experts pinned, against the dense bar; every MoE
      layer's capacity, dropped entries and routing flips (recorded inside the
      block, inside this script only); ``moe_block`` at its decode and prefill
-     shapes under ``torch.cuda.set_sync_debug_mode("error")``.
+     shapes under ``torch.cuda.set_sync_debug_mode("error")``;
+   * zamba2-2.7b (54 mamba layers in nine groups, each followed by the one
+     shared attention block, head dim 80): 54 SSD-scan and 9 flash launches;
+     the prefill logits against the plain route (plain scan and chunked
+     attention), measured against the plain route's own gap under scan chunk
+     64 and xla_full attention (see ``HYBRID_FLOOR_FACTOR``);
+   * qwen2-vl-2b (28 layers, M-RoPE): text only through ``generate``, as the
+     reference's launcher serves it, 28 flash launches; then one cached
+     prefill through ``forward`` of 1,024 vision embeddings (a 32 x 32 patch
+     grid at three distinct M-RoPE position streams) before 512 text
+     tokens, with a cache sized for it (``vision_prefill``);
+   * whisper-medium (24 encoder and 24 decoder layers) with 1,500 random
+     frames and a prompt of 416 (416 + 32 = 448, its decoder context): 24
+     flash launches, one per decoder self-attention; its encoder and every
+     cross-attention are not causal and take the chunked route, as in the
+     reference; every decode step reads the encoder's K/V from the cache.
+
+   Every flash and scan call of each prefill is held against its plain
+   version on the same inputs (the kernel's bf16 bar).
 
    ``generate`` runs the prefill eager and the decode step as a captured
    CUDA graph, replayed through no wrapper (decode launches neither kernel).
    Every launch counter is set to 0 just before ``generate`` and read just
-   after; a slice's own kernel must show one launch per layer and the other
-   kernel none.  The first generated token must be the prefill's argmax.  A
-   reduced config of each model runs on the card against the CPU (qwen2 and
-   olmoe prompt 24, olmoe's every ``moe_block`` call also on the card's
-   inputs; mamba2 prompt 200, which crosses a chunk boundary with a ragged
-   tail);
+   after; each kernel must show its launches of the slice
+   (``expected_launches``) and no more.  The first generated token must be
+   the prefill's argmax.  A reduced config of each model runs on the card
+   against the CPU (prompt 24, olmoe's every ``moe_block`` call also on the
+   card's inputs; mamba2 and zamba2 prompt 200, which crosses a chunk
+   boundary with a ragged tail; the new slices' kernel calls held against
+   their plain versions, see ``HYBRID_FLOOR_FACTOR``);
 5. timings from CUDA events after a warm-up, per slice: prefill, decode,
    tok/s and peak memory, and a torch.profiler pass over one prefill and one
    decode step (wall time, device-busy time, the device's idle share, the top
@@ -63,13 +85,15 @@ Phases, each failing loudly (an exception or a non-zero exit):
    version, its bound and, where one PyTorch call computes the same function,
    that call (``scaled_dot_product_attention`` for flash, timed as a
    yardstick only: the port never calls it; none for the SSD scan); the SSD
-   scan also at batch 1 x 2,048 tokens, with its split among its kernels.  Each of
-   these is timed by its device time per call (``device_ms``: the kernels'
-   own time in torch.profiler, summed over the kernels of 20 calls, over 20;
-   the median of the three profiler sessions, among those that recorded the
-   most kernels),
-   with the back-to-back CUDA-event time per call beside it (``event_ms``),
-   which also counts the host whenever a call's dispatch outlasts its kernels.
+   scan also at batch 1 x 2,048 tokens (mamba2's shape), with its split
+   among its kernels.  Each kernel, plain version and SDPA is timed by its
+   device time per call from a CUDA graph of 20 back-to-back calls
+   (``graph_ms``), beside its device time in torch.profiler (``device_ms``:
+   the kernels' own time, summed over the kernels of 20 calls, over 20; the
+   median of the three profiler sessions, among those that recorded the
+   most kernels), and the back-to-back CUDA-event time per call
+   (``event_ms``), which also counts the host whenever a call's dispatch
+   outlasts its kernels; the MoE block's parts by ``device_ms``.
    The decode graph, per slice (``decode_graph``): one eager decode step
    under ``torch.cuda.set_sync_debug_mode("error")``; one replay's logits
    and cache against the eager step from the same state (bf16 bar); the
@@ -116,12 +140,17 @@ Phases, each failing loudly (an exception or a non-zero exit):
    must drain it to exit code 0; (d) each trace of (a) through
    ``repro_torch.obs.report``.  Its findings are the ``"runtime"`` and
    ``"service"`` fields of the ``{"estimation": ...}`` line;
-7. the script's total seconds, a ``{"slice": ...}`` line per model (with its
-   ``decode_graph``), a
-   ``{"kernels": [...]}`` line (``launches`` sums ``launches_by_slice``; the
+7. the script's total seconds, a ``{"lint": ...}`` line, a ``{"slice": ...}``
+   line per model (with its ``decode_graph`` and its seconds), a
+   ``{"kernels": [...]}`` line (``launches`` sums ``launches_by_slice``, one
+   entry per slice whose ``generate`` launched the kernel; the
    top-level times are at the kernel's first slice's shape and ``by_slice``
    holds each slice's; ``ms``, ``plain_ms`` and ``library_ms`` are device
-   times; ``event_ms`` and the other ``*_event_ms`` the CUDA-event times;
+   times per call by CUDA-graph replay (``graph_ms``, since slice 9: some
+   profiler sessions recorded fewer kernels than were launched),
+   ``profiler_ms`` and the other ``*_profiler_ms`` torch.profiler's
+   (``device_ms``), ``event_ms`` and the other ``*_event_ms`` the CUDA-event
+   times of back-to-back calls;
    ``bound_share`` is ``bound_ms / ms``), an ``{"estimation": ...}`` line,
    then the result line, last:
    ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
@@ -176,6 +205,17 @@ SSM_FLOOR_FACTOR = 1.25
 # every moe_block call is held to BF16_TOL against the CPU on the same inputs
 # and the logits to this factor times the CPU routes' own largest gap.
 MOE_FLOOR_FACTOR = 1.25
+# zamba2-2.7b: 54 mamba layers and nine shared attention blocks amplify bf16
+# steps as mamba2's 48 do, through both kernels; every scan and flash call of
+# the kernel-route prefill is held against its plain version on the same
+# inputs, and the end-to-end gap to the plain route may exceed the plain
+# route's own gap under another scan chunking and the other attention core
+# (chunk 64 and xla_full, both orders changed at once) by at most this factor.
+# The reduced models of the new slices (zamba2's 12 mamba layers among them)
+# are held likewise: BF16_TOL, or where it is missed this factor times the
+# CPU's own gap between its plain routes, every kernel call on the card held
+# against its plain version on the same inputs.
+HYBRID_FLOOR_FACTOR = 1.25
 
 # Phase 6: the campaigns' budget, the held-out set and the repeatability probe
 EST_SAMPLES, EST_HELD_OUT, EST_REPEAT = 500, 300, 20
@@ -192,11 +232,15 @@ SERVICE_CLIENTS, SERVICE_REQUESTS, SERVICE_CONFIGS = 8, 40, 16
 
 BATCH, PROMPT, GEN, SEED = 4, 512, 32, 0
 LONG_PROMPT = 2048  # one sequence of 16 scan chunks: the split's serial pass and parallelism
+WHISPER_PROMPT = 416  # prompt + GEN = 448 positions, whisper's decoder context
 KERNELS = ("flash_attention", "ssd_scan")
-SLICES = {  # arch -> (its kernel, reduced prompt length for the card-vs-CPU check)
-    "qwen2-1.5b": ("flash_attention", 24),
-    "mamba2-780m": ("ssd_scan", 200),
-    "olmoe-1b-7b": ("flash_attention", 24),
+SLICES = {  # arch -> (prompt length at full width, reduced prompt length for the card-vs-CPU check)
+    "qwen2-1.5b": (PROMPT, 24),
+    "mamba2-780m": (PROMPT, 200),
+    "olmoe-1b-7b": (PROMPT, 24),
+    "zamba2-2.7b": (PROMPT, 200),
+    "qwen2-vl-2b": (PROMPT, 24),
+    "whisper-medium": (WHISPER_PROMPT, 24),
 }
 
 
@@ -266,9 +310,44 @@ def device_ms(fn, calls: int = 20, warmup: int = 3, sessions: int = 3) -> dict:
             "sessions_kernels": [r[1] for r in runs]}
 
 
-def timed(fn, calls: int = 20) -> dict:
-    """``fn`` by its device time (``device_ms``) and by CUDA events (``event_ms``)."""
-    return {**device_ms(fn, calls), "event_ms": cuda_time_ms(fn, reps=calls)}
+def graph_ms(fn, calls: int = 20, reps: int = 5) -> float:
+    """Device time per call of ``fn``: ``calls`` back-to-back calls captured
+    in one CUDA graph, its replays timed by CUDA events.  The host's dispatch
+    stays out of the window (as in ``device_ms``), and no kernel can go
+    missing from the count: torch.profiler sessions have recorded fewer
+    kernels than the calls launched (SDPA 1.35 of its 2 a call), which
+    times a call too fast.  Gaps between the graph's kernels are counted."""
+    import torch
+
+    fn()
+    torch.cuda.synchronize()
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):  # warm-up on a side stream, as torch.cuda.graphs asks
+        fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(calls):
+            fn()
+    graph.replay()
+    torch.cuda.synchronize()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(reps):
+        graph.replay()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / (reps * calls)
+
+
+def timed(fn, calls: int = 20, graph: bool = False) -> dict:
+    """``fn`` by its device time (``device_ms``), by CUDA events (``event_ms``)
+    and, with ``graph``, by CUDA-graph replay (``graph_ms``)."""
+    out = {**device_ms(fn, calls), "event_ms": cuda_time_ms(fn, reps=calls)}
+    if graph:
+        out["graph_ms"] = graph_ms(fn, calls)
+    return out
 
 
 def _bound(nbytes: float, flops: float, dtype) -> tuple[float, str]:
@@ -313,7 +392,8 @@ def ssd_bound_ms(x, log_da, bmat, state0, chunk: int) -> tuple[float, str]:
 def check_flash() -> dict:
     """The flash kernel against its plain version at every test shape.
 
-    Returns the largest error at each flash slice's prefill shape, by arch.
+    Returns the largest error at each flash slice's prefill shape, by arch:
+    zamba2's head dim 80 runs the kernel's padded 96-column tile, whisper's 64.
     """
     import torch
 
@@ -325,6 +405,10 @@ def check_flash() -> dict:
         # name, b, sq, skv, h, kvh, d, dtype, causal, q_offset; an fp32 case runs in bf16 too
         ("qwen2-1.5b", BATCH, PROMPT, PROMPT + GEN, 12, 2, 128, torch.bfloat16, True, 0),
         ("olmoe-1b-7b", BATCH, PROMPT, PROMPT + GEN, 16, 16, 128, torch.bfloat16, True, 0),
+        ("zamba2-2.7b", BATCH, PROMPT, PROMPT + GEN, 32, 32, 80, torch.bfloat16, True, 0),
+        ("qwen2-vl-2b", BATCH, PROMPT, PROMPT + GEN, 12, 2, 128, torch.bfloat16, True, 0),
+        ("whisper-medium", BATCH, WHISPER_PROMPT, WHISPER_PROMPT + GEN, 16, 16, 64, torch.bfloat16, True, 0),
+        ("mha d80 fp32", 1, 200, 232, 4, 4, 80, torch.float32, True, 32),
         ("mha d64", 1, 128, 128, 4, 4, 64, torch.float32, True, 0),
         ("gqa d80", 2, 256, 256, 8, 2, 80, torch.bfloat16, True, 0),
         ("mqa ragged d128", 1, 200, 200, 6, 1, 128, torch.float32, True, 0),
@@ -402,6 +486,7 @@ def check_ssd() -> dict:
         ("test_kernels bf16 ragged", 1, 300, 8, 64, 128, bf16, False, 128, 128),
         ("test_kernels f32 n16", 1, 128, 2, 32, 16, f32, False, 128, 128),
         ("mamba2-780m", BATCH, PROMPT, 48, 64, 128, bf16, True, 128, 128),
+        ("zamba2-2.7b", BATCH, PROMPT, 80, 64, 64, bf16, True, 128, 128),
         ("ragged s200 state0", 2, 200, 8, 64, 128, f32, True, 128, 128),
         ("reduced p32 n16", 2, 200, 8, 32, 16, bf16, True, 128, 128),
         ("part tile p24 n16", 1, 300, 4, 24, 16, f32, True, 64, 64),
@@ -410,7 +495,7 @@ def check_ssd() -> dict:
         ("one chunk bf16", 2, 100, 8, 64, 128, bf16, True, 128, 128),
         ("long chain s2048", 1, LONG_PROMPT, 48, 64, 128, bf16, True, 128, 128),
     ]
-    slice_err = None
+    slice_err = {}
     for name, b, s, h, p, n, dt, state, chunk, plain_chunk in cases:
         x, la, bm, cm, s0 = ssd_inputs(gen, b, s, h, p, n, dt, state)
         y, st = ops.ssd_scan(x, la, bm, cm, chunk=chunk, state0=s0)
@@ -427,8 +512,8 @@ def check_ssd() -> dict:
             f"state={err_s:.3e} (atol={tol['atol']:g} rtol={tol['rtol']:g}) {'ok' if ok else 'FAIL'}")
         if not ok:
             raise AssertionError(f"ssd_scan [{name}] disagrees with its plain version")
-        if name == "mamba2-780m":
-            slice_err = max(err_y, err_s)
+        if name in SLICES:
+            slice_err[name] = max(err_y, err_s)
     # B not 16-byte aligned: the kernel reads it element by element
     x, la, bm, cm, s0 = ssd_inputs(gen, 2, 300, 4, 64, 128, bf16, True)
     bm_odd = torch.empty(bm.numel() + 1, dtype=bf16, device="cuda")[1:].view(bm.shape)
@@ -450,7 +535,7 @@ def check_ssd() -> dict:
         log(f"kernel ssd_scan refuses head dim 12: {e}")
     else:
         raise AssertionError("ssd_scan accepted head dim 12")
-    return {"mamba2-780m": slice_err}
+    return slice_err
 
 
 def to_device(tree, dev):
@@ -472,13 +557,86 @@ def _leaves(tree):
         yield tree
 
 
+def clone_tree(tree):
+    """A cache with every tensor cloned (nested dicts and tuples kept)."""
+    if isinstance(tree, dict):
+        return {k: clone_tree(v) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(clone_tree(v) for v in tree)
+    return tree.clone()
+
+
+def cache_tensors(tree, prefix: str = ""):
+    """(path, tensor) of every cache buffer but the lengths."""
+    if isinstance(tree, dict):
+        for k, v in tree.items():
+            if k != "len":
+                yield from cache_tensors(v, f"{prefix}{k}/")
+    elif isinstance(tree, (list, tuple)):
+        for i, v in enumerate(tree):
+            yield from cache_tensors(v, f"{prefix}{i}/")
+    else:
+        yield prefix[:-1], tree
+
+
+def set_len_(cache: dict, n: int) -> None:
+    """Every ``len`` of ``cache`` (the hybrid's per-group lengths too) set to ``n`` in place."""
+    cache["len"].fill_(n)
+    if "attn" in cache:
+        cache["attn"]["len"].fill_(n)
+
+
+def with_len(cache: dict, n: int) -> dict:
+    """The same buffers behind fresh ``len`` tensors set to ``n``."""
+    import torch
+
+    out = {**cache, "len": torch.full((), n, dtype=torch.int32, device=cache["len"].device)}
+    if "attn" in cache:
+        out["attn"] = {**cache["attn"], "len": torch.full_like(cache["attn"]["len"], n)}
+    return out
+
+
 def slice_config(arch: str):
     from repro_torch.configs import get_config
 
     cfg = get_config(arch)
-    if cfg.family in ("dense", "moe"):
+    if cfg.family != "ssm":
         cfg = dataclasses.replace(cfg, attention_impl="flash_pallas")
     return cfg
+
+
+def expected_launches(cfg) -> dict:
+    """Each kernel's launches in one ``generate``: one per causal attention
+    layer of the prefill (whisper's encoder and cross-attention are not
+    causal; zamba2 runs its shared block once per group) and one scan per
+    mamba layer; decode launches neither."""
+    if cfg.family == "ssm":
+        attn = 0
+    elif cfg.family == "hybrid":
+        attn = cfg.n_layers // cfg.attn_every
+    else:
+        attn = cfg.n_layers
+    return {"flash_attention": attn, "ssd_scan": cfg.n_layers if cfg.family in ("ssm", "hybrid") else 0}
+
+
+def slice_extras(cfg, batch: int, seed: int) -> dict:
+    """``generate``'s other inputs, as the launcher makes them: whisper's
+    0.1-scaled random frames (the conv frontend is a stub); none else."""
+    import numpy as np
+
+    if cfg.family != "audio":
+        return {}
+    rng = np.random.default_rng(seed)
+    return {"frames": rng.standard_normal((batch, cfg.encoder_seq, cfg.d_model)).astype(np.float32) * 0.1}
+
+
+def slice_cache(cfg, batch: int, max_len: int, dev) -> dict:
+    """A prefill's empty cache; whisper's encoder K/V come from the prefill."""
+    from repro_torch.models.kvcache import init_cache
+
+    cache = init_cache(cfg, batch, max_len, dev)
+    cache.pop("enc_kv", None)
+    return cache
 
 
 @contextlib.contextmanager
@@ -496,22 +654,68 @@ def scan_replaced(fn):
 
 @contextlib.contextmanager
 def plain_route(cfg, chunk: int | None = None, attention: str = "xla_chunked"):
-    """The same model through its kernel's plain version: yields the config to run.
+    """The same model through its kernels' plain versions: yields the config to run.
 
     ``chunk`` sets the plain SSD scan's chunk length (default: the config's);
-    ``attention`` the plain attention core of the dense and moe families.
+    ``attention`` the plain attention core of every family with attention.
     """
     from repro_torch.kernels import ref
 
-    if cfg.family in ("dense", "moe"):
-        yield dataclasses.replace(cfg, attention_impl=attention)
+    run_cfg = cfg if cfg.family == "ssm" else dataclasses.replace(cfg, attention_impl=attention)
+    if cfg.family not in ("ssm", "hybrid"):
+        yield run_cfg
         return
 
     def plain(x, la, bm, cm, cfg_chunk, state0=None):
         return ref.ssd_scan_ref(x, la, bm, cm, chunk=chunk or cfg_chunk, state0=state0)
 
     with scan_replaced(plain):
-        yield cfg
+        yield run_cfg
+
+
+@contextlib.contextmanager
+def flashes_checked(errors: list):
+    """Hold every flash-kernel call of the model against its plain version on the same inputs."""
+    import torch
+
+    from repro_torch.kernels import ops, ref
+
+    kernel = ops.flash_attention
+
+    def checked(q, k, v, *, causal=True, q_offset=0):
+        o = kernel(q, k, v, causal=causal, q_offset=q_offset)
+        r = ref.flash_attention_ref(q, k, v, causal=causal, q_offset=q_offset)
+        errors.append(((o.float() - r.float()).abs().max().item(), tuple(q.shape), tuple(k.shape),
+                       torch.allclose(o.float(), r.float(), **BF16_TOL)))
+        return o
+
+    # the kernel counts its launches on the module's name, this wrapper while it stands there
+    checked.launches = kernel.launches
+    ops.flash_attention = checked
+    try:
+        yield
+    finally:
+        kernel.launches = checked.launches
+        ops.flash_attention = kernel
+
+
+def kernels_checked(stack: contextlib.ExitStack, cfg, scan_errors: list, flash_errors: list) -> None:
+    """Enter the checks of every kernel that ``cfg``'s prefill launches."""
+    expected = expected_launches(cfg)
+    if expected["ssd_scan"]:
+        stack.enter_context(scans_checked(scan_errors))
+    if expected["flash_attention"]:
+        stack.enter_context(flashes_checked(flash_errors))
+
+
+def checked_summary(name: str, errors: list, tol: dict) -> str:
+    """One line on a prefill's kernel calls held against their plain versions
+    (each call's record: its largest error first, whether it is within ``tol`` last)."""
+    if not errors:
+        return f"no {name} calls"
+    ok = sum(bool(e[-1]) for e in errors)
+    return (f"each of {len(errors)} {name} calls vs its plain version on the same inputs: max abs err "
+            f"{max(e[0] for e in errors):.3e} (atol={tol['atol']:g} rtol={tol['rtol']:g}), {ok} of {len(errors)} ok")
 
 
 @contextlib.contextmanager
@@ -619,12 +823,17 @@ def moe_blocks_checked(errors: list, routes: list):
 
 
 def check_reduced_against_cpu(arch: str, prompt: int) -> bool:
-    """A small input through the whole model: the card (kernel) against the CPU (plain).
+    """A small input through the whole model: the card (kernels) against the CPU (plain).
 
     For the moe family every ``moe_block`` call is also held against the CPU on
     the card's inputs; and where the logits miss ``BF16_TOL``, their largest
     error may exceed the CPU's own between two plain attention routes
-    (xla_full against xla_chunked) by at most ``MOE_FLOOR_FACTOR``.
+    (xla_full against xla_chunked) by at most ``MOE_FLOOR_FACTOR``.  For the
+    hybrid, vlm and audio families every kernel call on the card is held
+    against its plain version on the same inputs, and where the logits miss
+    ``BF16_TOL`` their largest error may exceed the CPU's own between its plain
+    routes (xla_full against xla_chunked, and for the hybrid scan chunk 64
+    against the config's as well) by at most ``HYBRID_FLOOR_FACTOR``.
     """
     import dataclasses
 
@@ -633,27 +842,48 @@ def check_reduced_against_cpu(arch: str, prompt: int) -> bool:
 
     from repro_torch.models import transformer as T
     from repro_torch.models.config import reduced
-    from repro_torch.models.kvcache import init_cache
 
     cfg = reduced(slice_config(arch))
     params_cpu = T.init_params(cfg, torch.Generator().manual_seed(SEED), "cpu")
     params_gpu = to_device(params_cpu, "cuda")
     prompts = np.random.default_rng(SEED + 1).integers(1, cfg.vocab, size=(2, prompt))
+    extras = slice_extras(cfg, 2, SEED + 2)
     moe_family = cfg.family == "moe"
+    new_family = cfg.family in ("hybrid", "vlm", "audio")
 
     def logits_on(dev, params, run_cfg, ctx=contextlib.nullcontext()):
-        cache = init_cache(cfg, 2, prompt + 4, dev)
+        cache = slice_cache(cfg, 2, prompt + 4, dev)
+        batch = {"tokens": torch.as_tensor(prompts, device=dev),
+                 **{k: torch.as_tensor(v, device=dev) for k, v in extras.items()}}
         with torch.no_grad(), ctx:
-            return T.forward(params, run_cfg, {"tokens": torch.as_tensor(prompts, device=dev)}, cache)[0].cpu()
+            return T.forward(params, run_cfg, batch, cache)[0].cpu()
 
-    routes, block_errors = {"cpu": [], "cuda": []}, []
+    routes, block_errors, scan_errors, flash_errors = {"cpu": [], "cuda": []}, [], [], []
     cpu = logits_on("cpu", params_cpu, cfg, moe_recorded(routes["cpu"]) if moe_family else contextlib.nullcontext())
-    with moe_blocks_checked(block_errors, routes["cuda"]) if moe_family else contextlib.nullcontext():
+    with contextlib.ExitStack() as stack:
+        if moe_family:
+            stack.enter_context(moe_blocks_checked(block_errors, routes["cuda"]))
+        if new_family:
+            kernels_checked(stack, cfg, scan_errors, flash_errors)
         card = logits_on("cuda", params_gpu, cfg)
     err = (card - cpu).abs().max().item()
     ok = torch.allclose(card, cpu, **BF16_TOL)
     log(f"reduced {arch} prompt {prompt} prefill logits, card vs CPU: max abs {err:.3e}, rel L2 "
         f"{((card - cpu).norm() / cpu.norm()).item():.3e} (atol=rtol={BF16_TOL['atol']:g}) {'ok' if ok else 'missed'}")
+    if new_family:
+        with plain_route(cfg, chunk=64 if cfg.family == "hybrid" else None, attention="xla_full") as other_cfg:
+            other = logits_on("cpu", params_cpu, other_cfg)
+        with plain_route(cfg) as plain_cfg:
+            plain = logits_on("cpu", params_cpu, plain_cfg)
+        floor = (other - plain).abs().max().item()
+        expected = expected_launches(cfg)
+        calls_ok = (all(e[-1] for e in flash_errors + scan_errors)
+                    and len(flash_errors) == expected["flash_attention"] and len(scan_errors) == expected["ssd_scan"])
+        log(f"reduced {arch} on the card: {checked_summary('flash_attention', flash_errors, BF16_TOL)}; "
+            f"{checked_summary('ssd_scan', scan_errors, SSD_BF16_TOL)}; the CPU's plain routes against each "
+            f"other: max abs {floor:.3e}; card vs CPU {err:.3e} = {err / floor:.3f} x that (bar "
+            f"{HYBRID_FLOOR_FACTOR:g} x where {BF16_TOL} is missed)")
+        return calls_ok and (ok or err <= HYBRID_FLOOR_FACTOR * floor)
     if not moe_family:
         return ok
     full = logits_on("cpu", params_cpu, dataclasses.replace(cfg, attention_impl="xla_full"))
@@ -668,8 +898,63 @@ def check_reduced_against_cpu(arch: str, prompt: int) -> bool:
     return blocks_ok and (ok or err <= MOE_FLOOR_FACTOR * floor)
 
 
-def serve_slice(arch: str) -> tuple[dict, int]:
-    """Phases 4 and 5 for one model: (its slice line, its kernel's launches in generate)."""
+def vision_prefill(cfg, params) -> dict:
+    """qwen2-vl: one cached prefill of ``cfg.vision_tokens`` vision embeddings
+    (a 32 x 32 patch grid) before ``PROMPT`` text tokens, at three distinct
+    M-RoPE position streams, through ``forward`` with a cache sized for it
+    (``generate`` sizes its cache from the prompt alone, as the reference's
+    does, so it cannot take them).  Every flash call is held against its plain
+    version, the logits against the plain route: ``PREFILL_REL_L2``, or where
+    that is missed ``HYBRID_FLOOR_FACTOR`` times the plain route's own gap
+    between its two attention cores (xla_full against xla_chunked)."""
+    import torch
+
+    from repro_torch.kernels import ops
+    from repro_torch.models import transformer as T
+
+    n_vis, side = cfg.vision_tokens, int(round(cfg.vision_tokens ** 0.5))
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 8)
+    vis = torch.randn((BATCH, n_vis, cfg.d_model), generator=gen, device="cuda") * 0.1
+    tokens = torch.randint(1, cfg.vocab, (BATCH, PROMPT), generator=gen, device="cuda")
+    grid = torch.arange(n_vis, device="cuda")
+    text = side + torch.arange(PROMPT, device="cuda")
+    pos = torch.stack([torch.cat([torch.zeros_like(grid), text]), torch.cat([grid // side, text]),
+                       torch.cat([grid % side, text])])[:, None, :].expand(3, BATCH, n_vis + PROMPT)
+    batch = {"tokens": tokens, "vision_embeds": vis, "positions": pos}
+
+    def run(run_cfg):
+        cache = slice_cache(cfg, BATCH, n_vis + PROMPT + GEN, "cuda")
+        return T.forward(params, run_cfg, batch, cache)[0]
+
+    errors: list = []
+    with torch.no_grad():
+        ops.flash_attention.launches = 0
+        with flashes_checked(errors):
+            logits_k = run(cfg)
+        launches = ops.flash_attention.launches
+        with plain_route(cfg) as plain_cfg:
+            logits_p = run(plain_cfg)
+        with plain_route(cfg, attention="xla_full") as full_cfg:
+            floor = ((run(full_cfg) - logits_p).norm() / logits_p.norm()).item()
+        ms = cuda_time_ms(lambda: run(cfg), reps=3, warmup=1)
+    rel = ((logits_k - logits_p).norm() / logits_p.norm()).item()
+    ok = (all(e[-1] for e in errors) and len(errors) == launches == cfg.n_layers
+          and bool(torch.isfinite(logits_k).all())
+          and (rel <= PREFILL_REL_L2 or rel <= HYBRID_FLOOR_FACTOR * floor))
+    log(f"{cfg.name} vision prefill: {n_vis} vision + {PROMPT} text tokens x {BATCH}, q{errors[0][1]} "
+        f"kv{errors[0][2]}, {launches} flash launches; {checked_summary('flash_attention', errors, BF16_TOL)}; "
+        f"logits vs plain route rel L2 {rel:.3e}, the plain route's xla_full vs xla_chunked {floor:.3e} "
+        f"(bar {PREFILL_REL_L2:g}, or {HYBRID_FLOOR_FACTOR:g} x that); {ms:.3f} ms "
+        f"({BATCH * (n_vis + PROMPT) / ms * 1e3:.0f} tok/s) {'ok' if ok else 'FAIL'}")
+    assert ok, f"{cfg.name}: the vision prefill disagrees with its plain route"
+    return {"vision_tokens": n_vis, "text_tokens": PROMPT, "flash_launches": launches, "rel_l2": rel,
+            "plain_floor_rel_l2": floor,
+            "flash_max_abs_err": max(e[0] for e in errors), "prefill_ms": ms, "q": list(errors[0][1]),
+            "kv": list(errors[0][2])}
+
+
+def serve_slice(arch: str) -> tuple[dict, dict]:
+    """Phases 4 and 5 for one model: (its slice line, each kernel's launches in generate)."""
     import numpy as np
     import torch
 
@@ -677,37 +962,38 @@ def serve_slice(arch: str) -> tuple[dict, int]:
     from repro_torch.launch.serve import generate
     from repro_torch.models import moe
     from repro_torch.models import transformer as T
-    from repro_torch.models.kvcache import init_cache
 
-    kernel, reduced_prompt = SLICES[arch]
+    prompt, reduced_prompt = SLICES[arch]
     cfg = slice_config(arch)
+    expected = expected_launches(cfg)
     gen = torch.Generator(device="cuda").manual_seed(SEED)
     t0 = time.perf_counter()
     params = T.init_params(cfg, gen, "cuda")
     torch.cuda.synchronize()
     n_params = sum(t.numel() for t in _leaves(params))
     log(f"init {arch}: {n_params / 1e9:.3f} B parameters in {time.perf_counter() - t0:.1f} s")
-    prompts = np.random.default_rng(SEED).integers(1, cfg.vocab, size=(BATCH, PROMPT))
+    prompts = np.random.default_rng(SEED).integers(1, cfg.vocab, size=(BATCH, prompt))
+    extras = slice_extras(cfg, BATCH, SEED + 7)
 
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
     for name in KERNELS:
         getattr(ops, name).launches = 0
-    tokens = generate(cfg, params, prompts, GEN, device="cuda")
+    tokens = generate(cfg, params, prompts, GEN, device="cuda", extras=extras)
     torch.cuda.synchronize()
     launches = {name: getattr(ops, name).launches for name in KERNELS}
     peak_gib = torch.cuda.max_memory_allocated() / 2**30
     log(f"generate {arch}: tokens {tuple(tokens.shape)}, launches {launches} "
-        f"(expected {kernel} {cfg.n_layers}, others 0), peak memory {peak_gib:.2f} GiB")
-    expected = {name: cfg.n_layers if name == kernel else 0 for name in KERNELS}
+        f"(expected {expected}), peak memory {peak_gib:.2f} GiB")
     assert launches == expected, f"{arch}: launches {launches}, expected {expected}"
     assert tokens.shape == (BATCH, GEN) and tokens.dtype == torch.long
     assert int(tokens.min()) >= 0 and int(tokens.max()) < cfg.vocab
 
     tok_in = torch.as_tensor(prompts, device="cuda")
+    batch = {"tokens": tok_in, **{k: torch.as_tensor(v, device="cuda") for k, v in extras.items()}}
 
     def prefill_logits(run_cfg):
-        return T.forward(params, run_cfg, {"tokens": tok_in}, init_cache(cfg, BATCH, PROMPT + GEN, "cuda"))[0]
+        return T.forward(params, run_cfg, batch, slice_cache(cfg, BATCH, prompt + GEN, "cuda"))[0]
 
     def rel_l2(a, b):
         return ((a - b).norm() / b.norm()).item()
@@ -716,32 +1002,40 @@ def serve_slice(arch: str) -> tuple[dict, int]:
         return moe_recorded(routes) if cfg.family == "moe" else contextlib.nullcontext()
 
     scan_errors: list = []
+    flash_errors: list = []
     routes = {"flash": [], "xla_chunked": [], "xla_full": []}
     moe_line, prefill_ok = None, True
     with torch.no_grad():
-        with scans_checked(scan_errors) if cfg.family == "ssm" else recorded(routes["flash"]):
+        with contextlib.ExitStack() as stack:
+            kernels_checked(stack, cfg, scan_errors, flash_errors)
+            stack.enter_context(recorded(routes["flash"]))
             logits_k = prefill_logits(cfg)
         with plain_route(cfg) as plain_cfg, recorded(routes["xla_chunked"]):
             logits_p = prefill_logits(plain_cfg)
-    assert logits_k.shape == (BATCH, PROMPT, cfg.vocab) and logits_k.dtype == torch.float32
+    assert logits_k.shape == (BATCH, prompt, cfg.vocab) and logits_k.dtype == torch.float32
     assert bool(torch.isfinite(logits_k).all()), "non-finite prefill logits"
     rel = rel_l2(logits_k, logits_p)
     agree = (logits_k.argmax(-1) == logits_p.argmax(-1)).float().mean().item()
-    log(f"{arch} prefill logits, {kernel} vs plain route: rel L2 {rel:.3e}, "
+    kernel_names = "+".join(name for name in KERNELS if expected[name])
+    log(f"{arch} prefill logits, {kernel_names} vs plain route: rel L2 {rel:.3e}, "
         f"max abs {(logits_k - logits_p).abs().max().item():.3e}, "
         f"|logits| max {logits_p.abs().max().item():.3f}, argmax agreement {agree:.4f}")
-    if cfg.family == "ssm":
-        assert len(scan_errors) == cfg.n_layers, f"{len(scan_errors)} scan calls in the prefill"
-        log(f"{arch} prefill, each of {len(scan_errors)} ssd_scan calls vs its plain version on the same "
-            f"inputs: max abs err y {max(e[0] for e in scan_errors):.3e}, state "
-            f"{max(e[1] for e in scan_errors):.3e} (atol={SSD_BF16_TOL['atol']:g} rtol={SSD_BF16_TOL['rtol']:g}), "
-            f"{sum(e[2] for e in scan_errors)} of {len(scan_errors)} ok")
-        assert all(e[2] for e in scan_errors), f"{arch}: an ssd_scan call disagrees with its plain version"
-        with torch.no_grad(), plain_route(cfg, chunk=64) as plain_cfg:
+    log(f"{arch} prefill, {checked_summary('flash_attention', flash_errors, BF16_TOL)}; "
+        f"{checked_summary('ssd_scan', scan_errors, SSD_BF16_TOL)}")
+    assert len(flash_errors) == expected["flash_attention"] and len(scan_errors) == expected["ssd_scan"], \
+        f"{arch}: {len(flash_errors)} flash and {len(scan_errors)} scan calls in the prefill"
+    assert all(e[-1] for e in flash_errors), f"{arch}: a flash_attention call disagrees with its plain version"
+    assert all(e[-1] for e in scan_errors), f"{arch}: an ssd_scan call disagrees with its plain version"
+    floor = None
+    if cfg.family in ("ssm", "hybrid"):
+        factor = SSM_FLOOR_FACTOR if cfg.family == "ssm" else HYBRID_FLOOR_FACTOR
+        attention = "xla_chunked" if cfg.family == "ssm" else "xla_full"
+        with torch.no_grad(), plain_route(cfg, chunk=64, attention=attention) as plain_cfg:
             floor = rel_l2(prefill_logits(plain_cfg), logits_p)
-        log(f"{arch} plain route, chunk 64 vs chunk {cfg.ssm_chunk}: rel L2 {floor:.3e}; kernel route "
-            f"{rel:.3e} = {rel / floor:.3f} x that (bar {SSM_FLOOR_FACTOR:g} x)")
-        assert rel <= SSM_FLOOR_FACTOR * floor, f"{arch}: the {kernel} prefill disagrees with the plain route"
+        log(f"{arch} plain route, chunk 64 vs chunk {cfg.ssm_chunk}"
+            + ("" if cfg.family == "ssm" else " and xla_full vs xla_chunked")
+            + f": rel L2 {floor:.3e}; kernel route {rel:.3e} = {rel / floor:.3f} x that (bar {factor:g} x)")
+        assert rel <= factor * floor, f"{arch}: the kernel prefill disagrees with the plain route"
     elif cfg.family == "moe":
         with torch.no_grad():
             with plain_route(cfg, attention="xla_full") as full_cfg, recorded(routes["xla_full"]):
@@ -754,7 +1048,7 @@ def serve_slice(arch: str) -> tuple[dict, int]:
         busiest = [int(torch.bincount(r["top_i"].flatten(), minlength=cfg.moe_experts).max())
                    for r in routes["flash"]]
         aux = [float(r["aux"]) for r in routes["flash"]]
-        entries = BATCH * PROMPT * cfg.moe_top_k
+        entries = BATCH * prompt * cfg.moe_top_k
         moe_line = {
             "capacity": {"prefill": routes["flash"][0]["capacity"],
                          "decode": moe.capacity(BATCH, cfg.moe_top_k, cfg.moe_experts, cfg.capacity_factor)},
@@ -780,32 +1074,35 @@ def serve_slice(arch: str) -> tuple[dict, int]:
             and pinned <= PREFILL_REL_L2
     else:
         log(f"{arch} prefill bar: rel L2 {PREFILL_REL_L2:g}")
-        assert rel <= PREFILL_REL_L2, f"{arch}: the {kernel} prefill disagrees with the plain route"
+        assert rel <= PREFILL_REL_L2, f"{arch}: the flash prefill disagrees with the plain route"
     assert torch.equal(tokens[:, 0], logits_k[:, -1].argmax(-1)), "first token != prefill argmax"
     del logits_k, logits_p
 
     reduced_ok = check_reduced_against_cpu(arch, reduced_prompt)
+    vision_line = vision_prefill(cfg, params) if cfg.family == "vlm" else None
 
     with torch.no_grad():
-        cache = init_cache(cfg, BATCH, PROMPT + GEN, "cuda")
-        len_prompt = torch.full((), PROMPT, dtype=torch.int32, device="cuda")
+        cache = slice_cache(cfg, BATCH, prompt + GEN, "cuda")
 
         def prefill():  # forward leaves the input cache's len (0) as it was
-            return T.forward(params, cfg, {"tokens": tok_in}, cache)
+            return T.forward(params, cfg, batch, cache)
 
         prefill_ms = cuda_time_ms(prefill, reps=5)
+        # the prefill's cache: its buffers, whisper's encoder K/V with them
+        decode_base = prefill()[2]
         step_tok = tokens[:, :1]
 
         def decode_run():
-            c = {**cache, "len": len_prompt}
+            c = with_len(decode_base, prompt)
             for _ in range(GEN - 1):
                 _, _, c = T.forward(params, cfg, {"tokens": step_tok}, c)
 
         decode_ms = cuda_time_ms(decode_run, reps=3, warmup=1) / (GEN - 1)
-        gen_ms = cuda_time_ms(lambda: generate(cfg, params, prompts, GEN, device="cuda"), reps=3, warmup=1)
+        gen_ms = cuda_time_ms(lambda: generate(cfg, params, prompts, GEN, device="cuda", extras=extras),
+                              reps=3, warmup=1)
 
         def decode_step():
-            return T.forward(params, cfg, {"tokens": step_tok}, {**cache, "len": len_prompt})
+            return T.forward(params, cfg, {"tokens": step_tok}, with_len(decode_base, prompt))
 
         breakdown = {}
         for name, fn, wall_ms in (("prefill", prefill, prefill_ms), ("decode step", decode_step, decode_ms)):
@@ -825,33 +1122,43 @@ def serve_slice(arch: str) -> tuple[dict, int]:
             moe_line["dropped_entries"]["decode_step"] = sum(int((~r["keep"]).sum()) for r in decode_routes)
             log(f"{arch} decode step routing: capacity {decode_routes[0]['capacity']}, dropped entries "
                 f"{moe_line['dropped_entries']['decode_step']} of {BATCH * cfg.moe_top_k * cfg.n_layers}")
-        graph_line = decode_graph(cfg, params, cache, step_tok, tokens, prompts, decode_ms, decode_run)
+        graph_line = decode_graph(cfg, params, decode_base, step_tok, tokens, prompts, extras, prompt,
+                                  decode_ms, decode_run)
     if cfg.family == "moe":
         moe_line["sync_free"] = check_moe_sync_free(cfg, params["layers"][0]["moe"])
         moe_line["moe_block"] = time_moe(cfg, params["layers"][0]["moe"])
-    log(f"{arch} prefill {BATCH}x{PROMPT}: {prefill_ms:.3f} ms ({BATCH * PROMPT / prefill_ms * 1e3:.0f} tok/s); "
+    log(f"{arch} prefill {BATCH}x{prompt}: {prefill_ms:.3f} ms ({BATCH * prompt / prefill_ms * 1e3:.0f} tok/s); "
         f"decode: {decode_ms:.3f} ms/step ({BATCH / decode_ms * 1e3:.1f} tok/s at batch {BATCH}); "
         f"generate {BATCH}x{GEN}: {gen_ms:.3f} ms ({BATCH * GEN / gen_ms * 1e3:.1f} tok/s)")
-    line = {"arch": arch, "batch": BATCH, "prompt": PROMPT, "gen": GEN, "prefill_ms": prefill_ms,
-            "decode_ms_per_step": decode_ms, "generate_ms": gen_ms, "peak_gib": peak_gib,
-            "launches": launches, "profile": breakdown, "decode_graph": graph_line}
+    line = {"arch": arch, "batch": BATCH, "prompt": prompt, "gen": GEN, "parameters": n_params,
+            "prefill_ms": prefill_ms, "decode_ms_per_step": decode_ms, "generate_ms": gen_ms,
+            "generate_tok_s": BATCH * GEN / gen_ms * 1e3, "peak_gib": peak_gib, "launches": launches,
+            "prefill_rel_l2": rel, "plain_floor_rel_l2": floor,
+            "flash_calls_max_abs_err": max((e[0] for e in flash_errors), default=None),
+            "scan_calls_max_abs_err": max((max(e[0], e[1]) for e in scan_errors), default=None),
+            "profile": breakdown, "decode_graph": graph_line}
+    if cfg.family == "audio":
+        line["encoder_frames"] = cfg.encoder_seq
+    if vision_line is not None:
+        line["vision_prefill"] = vision_line
     if moe_line is not None:
         line["moe"] = moe_line
-    assert prefill_ok, f"{arch}: the {kernel} prefill disagrees with the plain route"
+    assert prefill_ok, f"{arch}: the flash prefill disagrees with the plain route"
     assert reduced_ok, f"reduced {arch} on the card disagrees with the CPU"
-    return line, launches[kernel]
+    return line, launches
 
 
-def eager_generate(cfg, params, prompts):
+def eager_generate(cfg, params, prompts, extras: dict, prompt: int):
     """``generate`` with every decode step eager, as on the CPU: the graph's yardstick."""
     import torch
 
     from repro_torch.models import transformer as T
-    from repro_torch.models.kvcache import init_cache
     from repro_torch.train.steps import make_serve_step
 
-    cache = init_cache(cfg, BATCH, PROMPT + GEN, "cuda")
-    logits, _, cache = T.forward(params, cfg, {"tokens": torch.as_tensor(prompts, device="cuda")}, cache)
+    cache = slice_cache(cfg, BATCH, prompt + GEN, "cuda")
+    batch = {"tokens": torch.as_tensor(prompts, device="cuda"),
+             **{k: torch.as_tensor(v, device="cuda") for k, v in extras.items()}}
+    logits, _, cache = T.forward(params, cfg, batch, cache)
     out, step = [logits[:, -1].argmax(-1)], make_serve_step(cfg)
     for _ in range(GEN - 1):
         nxt, cache = step(params, cache, {"tokens": out[-1][:, None]})
@@ -859,17 +1166,19 @@ def eager_generate(cfg, params, prompts):
     return torch.stack(out, dim=1)
 
 
-def decode_graph(cfg, params, cache, step_tok, gen_tokens, prompts, eager_ms, eager_run) -> dict:
+def decode_graph(cfg, params, cache, step_tok, gen_tokens, prompts, extras, prompt, eager_ms, eager_run) -> dict:
     """The decode step as a CUDA graph, against the same step run eagerly.
 
-    ``cache`` holds the prefill of ``step_tok``'s prompts; ``gen_tokens`` is
-    ``generate``'s output (graph decode), ``eager_ms`` the eager decode time
-    per step and ``eager_run`` its timed run of ``GEN - 1`` eager steps.
-    Checks that an eager step synchronises nowhere (sync debug mode
-    "error"), and holds one replay's logits and cache against the eager step
-    from the same state (``BF16_TOL``); prints the tokens' agreement with an
-    eager ``generate``, decode ms per step eager and graph in turns, capture
-    seconds and peak memory, and a profile of one replayed and one eager step.
+    ``cache`` holds the prefill of ``step_tok``'s prompts (of ``prompt``
+    tokens; for whisper with the encoder's K/V, which every replay reads from
+    the same buffers); ``gen_tokens`` is ``generate``'s output (graph
+    decode), ``eager_ms`` the eager decode time per step and ``eager_run``
+    its timed run of ``GEN - 1`` eager steps.  Checks that an eager step
+    synchronises nowhere (sync debug mode "error"), and holds one replay's
+    logits and cache against the eager step from the same state
+    (``BF16_TOL``); prints the tokens' agreement with an eager ``generate``,
+    decode ms per step eager and graph in turns, capture seconds and peak
+    memory, and a profile of one replayed and one eager step.
     """
     import torch
 
@@ -877,10 +1186,11 @@ def decode_graph(cfg, params, cache, step_tok, gen_tokens, prompts, eager_ms, ea
     from repro_torch.train.steps import capture_serve_step, make_serve_step, serve_step_in_place
 
     def state_at(length: int) -> dict:
-        return {**{k: v.clone() for k, v in cache.items()},
-                "len": torch.full((), length, dtype=torch.int32, device="cuda")}
+        state = clone_tree(cache)
+        set_len_(state, length)
+        return state
 
-    probe = state_at(PROMPT)
+    probe = state_at(prompt)
     make_serve_step(cfg)(params, probe, {"tokens": step_tok})  # warm
     torch.cuda.synchronize()
     torch.cuda.set_sync_debug_mode("error")
@@ -891,7 +1201,7 @@ def decode_graph(cfg, params, cache, step_tok, gen_tokens, prompts, eager_ms, ea
     torch.cuda.synchronize()
     del probe
 
-    graph_cache = state_at(PROMPT)
+    graph_cache = state_at(prompt)
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
@@ -901,25 +1211,29 @@ def decode_graph(cfg, params, cache, step_tok, gen_tokens, prompts, eager_ms, ea
     capture_peak_gib = torch.cuda.max_memory_allocated() / 2**30
 
     # one replay against the eager step from the state the replay starts from
-    eager_cache, tok1 = {k: v.clone() for k, v in graph_cache.items()}, step.tokens.clone()
+    eager_cache, tok1 = clone_tree(graph_cache), step.tokens.clone()
     step.replay()
     logits_e, _, eager_new = T.forward(params, cfg, {"tokens": tok1}, eager_cache)
     torch.cuda.synchronize()
     logits_err = (step.logits - logits_e).abs().max().item()
-    cache_err = {k: (graph_cache[k].float() - eager_cache[k].float()).abs().max().item()
-                 for k in graph_cache if k != "len"}
+    graph_bufs, eager_bufs = dict(cache_tensors(graph_cache)), dict(cache_tensors(eager_cache))
+    cache_err = {k: (graph_bufs[k].float() - eager_bufs[k].float()).abs().max().item() for k in graph_bufs}
     lens = (int(graph_cache["len"]), int(eager_new["len"]))
-    replay_ok = (torch.allclose(step.logits, logits_e, **BF16_TOL) and lens == (PROMPT + 2,) * 2
-                 and all(torch.allclose(graph_cache[k].float(), eager_cache[k].float(), **BF16_TOL)
+    group_lens_ok = "attn" not in cache or (
+        graph_cache["attn"]["len"].tolist() == eager_new["attn"]["len"].tolist() == [prompt + 2] * len(
+            graph_cache["attn"]["len"]))
+    replay_ok = (torch.allclose(step.logits, logits_e, **BF16_TOL) and lens == (prompt + 2,) * 2 and group_lens_ok
+                 and all(torch.allclose(graph_bufs[k].float(), eager_bufs[k].float(), **BF16_TOL)
                          for k in cache_err))
     same_token = bool(torch.equal(step.tokens[:, 0], logits_e[:, -1].argmax(-1)))
     log(f"{cfg.name} decode graph: captured in {capture_s:.2f} s (the warm-up step included), peak "
         f"{capture_peak_gib:.2f} GiB; one replay vs the eager step from the same state: logits max abs "
-        f"{logits_err:.3e}, cache max abs {max(cache_err.values()):.3e}, len {lens}, same next token "
-        f"{same_token} (atol=rtol={BF16_TOL['atol']:g}) {'ok' if replay_ok else 'FAIL'}")
+        f"{logits_err:.3e}, cache max abs {max(cache_err.values()):.3e} over {len(cache_err)} buffers, len "
+        f"{lens}, per-group lens ok {group_lens_ok}, same next token {same_token} "
+        f"(atol=rtol={BF16_TOL['atol']:g}) {'ok' if replay_ok else 'FAIL'}")
     del eager_cache, logits_e, eager_new
 
-    eager_tokens = eager_generate(cfg, params, prompts)
+    eager_tokens = eager_generate(cfg, params, prompts, extras, prompt)
     differ = (eager_tokens != gen_tokens).any(dim=0).nonzero()
     agreement = (eager_tokens == gen_tokens).float().mean().item()
     first_diff = int(differ[0]) if len(differ) else None
@@ -927,7 +1241,7 @@ def decode_graph(cfg, params, cache, step_tok, gen_tokens, prompts, eager_ms, ea
         f"first differing step {first_diff}")
 
     def graph_run():
-        graph_cache["len"].fill_(PROMPT)
+        set_len_(graph_cache, prompt)
         step.tokens.copy_(step_tok)
         for _ in range(GEN - 1):
             step.replay()
@@ -939,9 +1253,9 @@ def decode_graph(cfg, params, cache, step_tok, gen_tokens, prompts, eager_ms, ea
 
     # one replayed step and one eager step of the same body, profiled; each
     # call advances len by one, seven calls in all
-    graph_cache["len"].fill_(PROMPT)
+    set_len_(graph_cache, prompt)
     prof_g = device_ms(step.replay, calls=1, warmup=1)
-    eager_state, tok_buf = state_at(PROMPT), step_tok.clone()
+    eager_state, tok_buf = state_at(prompt), step_tok.clone()
     prof_e = device_ms(lambda: serve_step_in_place(cfg, params, eager_state, tok_buf), calls=1, warmup=1)
     profiles = {}
     for name, prof, wall in (("graph", prof_g, min(graph_ms)), ("eager", prof_e, min(eager_list))):
@@ -1055,9 +1369,10 @@ def time_flash(arch: str) -> dict:
     from repro_torch.kernels import ops, ref
 
     cfg = slice_config(arch)
+    prompt = SLICES[arch][0]
     gen = torch.Generator(device="cuda").manual_seed(SEED + 3)
-    q = torch.randn((BATCH, PROMPT, cfg.n_heads, cfg.head_dim), generator=gen, device="cuda").bfloat16()
-    k = torch.randn((BATCH, PROMPT + GEN, cfg.n_kv_heads, cfg.head_dim), generator=gen, device="cuda").bfloat16()
+    q = torch.randn((BATCH, prompt, cfg.n_heads, cfg.head_dim), generator=gen, device="cuda").bfloat16()
+    k = torch.randn((BATCH, prompt + GEN, cfg.n_kv_heads, cfg.head_dim), generator=gen, device="cuda").bfloat16()
     v = torch.randn_like(k)
     qt, kt, vt = q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2)
 
@@ -1066,31 +1381,36 @@ def time_flash(arch: str) -> dict:
 
     sdpa_err = (sdpa().transpose(1, 2).float() - ref.flash_attention_ref(q, k, v).float()).abs().max().item()
     # kernel, SDPA, SDPA, kernel: each measured twice, in turns
-    kernel = timed(lambda: ops.flash_attention(q, k, v, causal=True))
-    library = timed(sdpa)
-    library2 = timed(sdpa)
-    kernel2 = timed(lambda: ops.flash_attention(q, k, v, causal=True))
-    plain = timed(lambda: ref.flash_attention_ref(q, k, v, causal=True), calls=10)
+    kernel = timed(lambda: ops.flash_attention(q, k, v, causal=True), graph=True)
+    library = timed(sdpa, graph=True)
+    library2 = timed(sdpa, graph=True)
+    kernel2 = timed(lambda: ops.flash_attention(q, k, v, causal=True), graph=True)
+    plain = timed(lambda: ref.flash_attention_ref(q, k, v, causal=True), calls=10, graph=True)
     bound_ms, bound_by = flash_bound_ms(q, k, causal=True)
-    log(f"flash_attention q{tuple(q.shape)} kv{tuple(k.shape)} bf16 causal, device ms per call "
-        f"(CUDA-event ms per call): kernel {kernel['ms']:.4f} / {kernel2['ms']:.4f} "
-        f"({kernel['event_ms']:.4f} / {kernel2['event_ms']:.4f}), sdpa {library['ms']:.4f} / "
-        f"{library2['ms']:.4f} ({library['event_ms']:.4f} / {library2['event_ms']:.4f}; "
-        f"{library['kernels']:g} kernels a call; max abs vs plain {sdpa_err:.2e}), plain {plain['ms']:.4f} "
-        f"({plain['event_ms']:.4f}), bound {bound_ms:.5f} ms ({bound_by})")
+    log(f"flash_attention q{tuple(q.shape)} kv{tuple(k.shape)} bf16 causal, ms per call by CUDA-graph "
+        f"replay (torch.profiler; kernels a call it recorded; CUDA events): kernel {kernel['graph_ms']:.4f} / "
+        f"{kernel2['graph_ms']:.4f} ({kernel['ms']:.4f} / {kernel2['ms']:.4f}; {kernel['kernels']:g}; "
+        f"{kernel['event_ms']:.4f} / {kernel2['event_ms']:.4f}), sdpa {library['graph_ms']:.4f} / "
+        f"{library2['graph_ms']:.4f} ({library['ms']:.4f} / {library2['ms']:.4f}; {library['kernels']:g}; "
+        f"{library['event_ms']:.4f} / {library2['event_ms']:.4f}; max abs vs plain {sdpa_err:.2e}), plain "
+        f"{plain['graph_ms']:.4f} ({plain['ms']:.4f}; {plain['kernels']:g}; {plain['event_ms']:.4f}), "
+        f"bound {bound_ms:.5f} ms ({bound_by})")
     log(f"flash_attention kernels: {[k for k, _ in kernel['top']]}; sdpa kernels: {[k for k, _ in library['top']]}")
     log("device ms per call in each profiler session: " + "; ".join(
         f"{name} {', '.join(f'{x:.4f}' for x in t['sessions_ms'])}"
         for name, t in (("kernel", kernel), ("sdpa", library), ("sdpa", library2), ("kernel", kernel2),
                         ("plain", plain))))
-    return {"q": list(q.shape), "kv": list(k.shape), "ms": kernel["ms"], "event_ms": kernel["event_ms"],
-            "plain_ms": plain["ms"], "plain_event_ms": plain["event_ms"], "bound_ms": bound_ms,
-            "bound_by": bound_by, "library_ms": library["ms"], "library_event_ms": library["event_ms"]}
+    return {"q": list(q.shape), "kv": list(k.shape), "ms": kernel["graph_ms"], "profiler_ms": kernel["ms"],
+            "event_ms": kernel["event_ms"], "plain_ms": plain["graph_ms"], "plain_profiler_ms": plain["ms"],
+            "plain_event_ms": plain["event_ms"], "bound_ms": bound_ms, "bound_by": bound_by,
+            "library_ms": library["graph_ms"], "library_profiler_ms": library["ms"],
+            "library_event_ms": library["event_ms"]}
 
 
-def time_ssd() -> dict:
-    """The SSD-scan kernel at mamba2-780m's prefill shape, chunk 128 and 64: kernel, plain, bound;
-    and at batch 1 x ``LONG_PROMPT`` tokens.  Each with its device time split among its kernels.
+def time_ssd(arch: str) -> dict:
+    """The SSD-scan kernel at ``arch``'s prefill shape: kernel, plain, bound; for
+    mamba2-780m also at chunk 64 and at batch 1 x ``LONG_PROMPT`` tokens.  Each
+    with its device time split among its kernels.
 
     No single PyTorch call computes the SSD scan, so there is no library time.
     """
@@ -1098,39 +1418,47 @@ def time_ssd() -> dict:
 
     from repro_torch.kernels import ops, ref
 
-    cfg = slice_config("mamba2-780m")
+    cfg = slice_config(arch)
+    prompt = SLICES[arch][0]
     gen = torch.Generator(device="cuda").manual_seed(SEED + 4)
     h, p, n, chunk = cfg.ssm_heads, cfg.ssm_headdim, cfg.ssm_state, cfg.ssm_chunk
-    x, la, bm, cm, _ = ssd_inputs(gen, BATCH, PROMPT, h, p, n, torch.bfloat16, state=False)
+    x, la, bm, cm, _ = ssd_inputs(gen, BATCH, prompt, h, p, n, torch.bfloat16, state=False)
     s0 = torch.zeros((BATCH, h, p, n), device="cuda")
-    kernel = timed(lambda: ops.ssd_scan(x, la, bm, cm, chunk=chunk, state0=s0))
-    kernel64 = timed(lambda: ops.ssd_scan(x, la, bm, cm, chunk=64, state0=s0))
-    plain = timed(lambda: ref.ssd_scan_ref(x, la, bm, cm, chunk=chunk, state0=s0), calls=10)
+    kernel = timed(lambda: ops.ssd_scan(x, la, bm, cm, chunk=chunk, state0=s0), graph=True)
+    plain = timed(lambda: ref.ssd_scan_ref(x, la, bm, cm, chunk=chunk, state0=s0), calls=10, graph=True)
     bound_ms, bound_by = ssd_bound_ms(x, la, bm, s0, chunk)
-    xl, lal, bml, cml, s0l = ssd_inputs(gen, 1, LONG_PROMPT, h, p, n, torch.bfloat16, state=True)
-    long = timed(lambda: ops.ssd_scan(xl, lal, bml, cml, chunk=chunk, state0=s0l))
-    long_bound_ms, long_bound_by = ssd_bound_ms(xl, lal, bml, s0l, chunk)
 
     def split(t):
         return "; ".join(f"{k[:60]} {ms:.4f}" for k, ms in t["top"])
 
-    log(f"ssd_scan x{tuple(x.shape)} n={n} bf16, state0 given, device ms per call "
-        f"(CUDA-event ms per call): kernel {kernel['ms']:.4f} ({kernel['event_ms']:.4f}; "
-        f"{kernel['kernels']:g} kernels a call) at chunk {chunk}, {kernel64['ms']:.4f} "
-        f"({kernel64['event_ms']:.4f}) at chunk 64, plain {plain['ms']:.4f} ({plain['event_ms']:.4f}), "
-        f"bound {bound_ms:.4f} ms ({bound_by}), library: none")
-    log(f"ssd_scan x{tuple(xl.shape)} n={n} bf16, state0 given, chunk {chunk}: kernel {long['ms']:.4f} "
-        f"device ms per call ({long['event_ms']:.4f} events; {long['kernels']:g} kernels a call), "
-        f"bound {long_bound_ms:.4f} ms ({long_bound_by}), bound share {long_bound_ms / long['ms']:.3f}")
+    log(f"ssd_scan [{arch}] x{tuple(x.shape)} n={n} bf16, state0 given, ms per call by CUDA-graph replay "
+        f"(torch.profiler; kernels a call it recorded, of 3; CUDA events): kernel {kernel['graph_ms']:.4f} "
+        f"({kernel['ms']:.4f}; {kernel['kernels']:g}; {kernel['event_ms']:.4f}) at chunk {chunk}, plain "
+        f"{plain['graph_ms']:.4f} ({plain['ms']:.4f}; {plain['event_ms']:.4f}), bound {bound_ms:.4f} ms "
+        f"({bound_by}), bound share {bound_ms / kernel['graph_ms']:.3f}, library: none")
+    log(f"ssd_scan [{arch}] device ms per call by kernel, x{tuple(x.shape)} chunk {chunk}: {split(kernel)}")
+    out = {"x": list(x.shape), "n": n, "ms": kernel["graph_ms"], "profiler_ms": kernel["ms"],
+           "event_ms": kernel["event_ms"], "plain_ms": plain["graph_ms"], "plain_profiler_ms": plain["ms"],
+           "plain_event_ms": plain["event_ms"], "bound_ms": bound_ms, "bound_by": bound_by,
+           "library_ms": None, "library_profiler_ms": None, "library_event_ms": None}
+    if arch != "mamba2-780m":
+        return out
+    kernel64 = timed(lambda: ops.ssd_scan(x, la, bm, cm, chunk=64, state0=s0), graph=True)
+    xl, lal, bml, cml, s0l = ssd_inputs(gen, 1, LONG_PROMPT, h, p, n, torch.bfloat16, state=True)
+    long = timed(lambda: ops.ssd_scan(xl, lal, bml, cml, chunk=chunk, state0=s0l), graph=True)
+    long_bound_ms, long_bound_by = ssd_bound_ms(xl, lal, bml, s0l, chunk)
+    log(f"ssd_scan x{tuple(x.shape)} chunk 64: kernel {kernel64['graph_ms']:.4f} by graph replay "
+        f"({kernel64['ms']:.4f} profiler; {kernel64['event_ms']:.4f} events)")
+    log(f"ssd_scan x{tuple(xl.shape)} n={n} bf16, state0 given, chunk {chunk}: kernel {long['graph_ms']:.4f} "
+        f"ms per call by graph replay ({long['ms']:.4f} profiler, {long['kernels']:g} kernels a call; "
+        f"{long['event_ms']:.4f} events), bound {long_bound_ms:.4f} ms ({long_bound_by}), bound share "
+        f"{long_bound_ms / long['graph_ms']:.3f}")
     log("ssd_scan device ms per call (kernels a call) in each profiler session: " + "; ".join(
         f"{name} " + ", ".join(f"{m:.4f} ({k:g})" for m, k in zip(t["sessions_ms"], t["sessions_kernels"]))
         for name, t in (("chunk 128", kernel), ("chunk 64", kernel64), ("long", long))))
-    log(f"ssd_scan device ms per call by kernel, x{tuple(x.shape)} chunk {chunk}: {split(kernel)}")
     log(f"ssd_scan device ms per call by kernel, x{tuple(x.shape)} chunk 64: {split(kernel64)}")
     log(f"ssd_scan device ms per call by kernel, x{tuple(xl.shape)} chunk {chunk}: {split(long)}")
-    return {"x": list(x.shape), "ms": kernel["ms"], "event_ms": kernel["event_ms"], "plain_ms": plain["ms"],
-            "plain_event_ms": plain["event_ms"], "bound_ms": bound_ms, "bound_by": bound_by,
-            "library_ms": None, "library_event_ms": None, "chunk64_ms": kernel64["ms"]}
+    return {**out, "chunk64_ms": kernel64["graph_ms"], "long_ms": long["graph_ms"], "long_bound_ms": long_bound_ms}
 
 
 def estimate_on_card(smi: str) -> dict:
@@ -1729,6 +2057,27 @@ def service_on_card(smi: str, hub_dir: Path) -> dict:
     return result
 
 
+def run_lint() -> dict:
+    """``python -m repro_torch.analysis src/repro_torch``: every rule of the
+    port's linter over the port; fails unless it reports 0 unsuppressed findings."""
+    import os
+
+    t0 = time.perf_counter()
+    proc = subprocess.run(
+        [sys.executable, "-m", "repro_torch.analysis", str(SRC / "repro_torch"), "--format", "json"],
+        capture_output=True, text=True, timeout=300, cwd=ROOT,
+        env={**os.environ, "PYTHONPATH": str(SRC)},
+    )
+    report = json.loads(proc.stdout)
+    line = {"exit_code": proc.returncode, "files": report["files"], "findings": len(report["findings"]),
+            "suppressed": report["suppressed"], "seconds": time.perf_counter() - t0}
+    log(f"repro_torch.analysis src/repro_torch: exit {proc.returncode}, {line['findings']} finding(s), "
+        f"{line['suppressed']} suppressed, {line['files']} file(s)")
+    if proc.returncode != 0 or report["findings"]:
+        raise AssertionError(f"repro-lint found {report['findings']}")
+    return line
+
+
 def main() -> int:
     import torch
 
@@ -1768,18 +2117,28 @@ def main() -> int:
             if "registers" in line or "spill" in line or "Compiling entry" in line:
                 log(f"    ptxas: {line.strip()}")
 
+    # ---- 2b. repro-lint of the port, on this machine's Python
+    lint = run_lint()
+
     # ---- 3. kernels against their plain versions
     checks = {"flash_attention": check_flash(), "ssd_scan": check_ssd()}
 
     # ---- 4 and 5. the slices, and each kernel at each of its slices' shapes
     slices, launches = [], {name: {} for name in KERNELS}
-    for arch, (kernel, _) in SLICES.items():
-        line, launches[kernel][arch] = serve_slice(arch)
+    for arch in SLICES:
+        t0 = time.perf_counter()
+        line, by_kernel = serve_slice(arch)
+        line["phase_seconds"] = time.perf_counter() - t0
+        log(f"{arch}: {line['phase_seconds']:.1f} s")
         slices.append(line)
+        for name, n in by_kernel.items():
+            if n:
+                launches[name][arch] = n
         torch.cuda.empty_cache()
     timings = {name: {} for name in KERNELS}
-    for arch, (kernel, _) in SLICES.items():
-        timings[kernel][arch] = time_flash(arch) if kernel == "flash_attention" else time_ssd()
+    for name in KERNELS:
+        for arch in launches[name]:
+            timings[name][arch] = time_flash(arch) if name == "flash_attention" else time_ssd(arch)
 
     # ---- 6. the estimation pipeline, the card as its black-box platform
     from repro_torch.kernels import ops
@@ -1830,11 +2189,12 @@ def main() -> int:
             "launches": sum(launches[name].values()), "launches_by_slice": launches[name],
             "max_abs_err": max(checks[name].values()),
             **{k: first[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms", "event_ms",
-                                     "plain_event_ms", "library_event_ms", "bound_share",
-                                     "ms_over_library_ms")},
+                                     "plain_event_ms", "library_event_ms", "profiler_ms", "plain_profiler_ms",
+                                     "library_profiler_ms", "bound_share", "ms_over_library_ms")},
             "by_slice": by_slice,
         })
     log(f"chip_smoke: {time.perf_counter() - t_start:.1f} s in all")
+    log(json.dumps({"lint": lint}))
     for line in slices:
         log(json.dumps({"slice": {**line, "card": smi}}))
     log(json.dumps({"kernels": kernels}))

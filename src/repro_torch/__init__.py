@@ -17,14 +17,16 @@ Entry points (``models.transformer.init_params``, ``launch.serve.generate``,
 caller asks for ``device="cpu"``; without a card they raise
 (``device.resolve_device``).
 
-Ported so far: the serving paths of the dense (qwen2-1.5b and the other
-dense configs), ssm (mamba2-780m) and moe (olmoe-1b-7b) families, with the
-flash-attention and SSD-scan kernels and the decode step replayed as a CUDA
-graph on the card; the estimation pipeline (``api``: campaign, cache,
+Ported so far: the serving paths of all six families, dense (qwen2-1.5b
+and the other dense configs), ssm (mamba2-780m), moe (olmoe-1b-7b), hybrid
+(zamba2-2.7b), vlm (qwen2-vl-2b, M-RoPE) and audio (whisper-medium), with
+the flash-attention and SSD-scan kernels and the decode step replayed as a
+CUDA graph on the card; the estimation pipeline (``api``: campaign, cache,
 oracle, hub; ``core``, the advisor among it), with the card as the measured
 platform ``accelerators.torch_device`` and the analytic platforms
 ``tpu_v5e``, ``ultratrail`` and ``vta``; the measurement runtime
 (``runtime``: worker pool, retries, crash-safe journal), the oracle service
-(``serving``) and the trace report (``obs.report``).  See ROADMAP.md for the
-rest.
+(``serving``), the trace report (``obs.report``) and repro-lint
+(``analysis``: ``python -m repro_torch.analysis src/repro_torch``).  See
+ROADMAP.md for the rest.
 """

@@ -28,15 +28,14 @@ import math
 import time
 
 import numpy as np
-import torch
 
 from repro_torch.accelerators.base import Platform
 from repro_torch.core.batch import BlockBatch, ConfigBatch
 from repro_torch.core.prs import Config, ParamSpace
-from repro_torch.device import resolve_device
 from repro_torch.registry import register_platform
 
-_DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16, "float16": torch.float16}
+#: the torch dtypes a GEMM is timed in, by name (torch is imported where it runs)
+_DTYPES = ("float32", "bfloat16", "float16")
 
 #: launches per timed sample; the sample is their mean
 LAUNCHES_PER_SAMPLE = 10
@@ -45,6 +44,8 @@ LAUNCHES_PER_SAMPLE = 10
 @contextlib.contextmanager
 def _true_fp32():
     """fp32 GEMMs in true fp32 while timing, never TF32; the flag is restored after."""
+    import torch
+
     saved = torch.backends.cuda.matmul.allow_tf32
     torch.backends.cuda.matmul.allow_tf32 = False
     try:
@@ -77,8 +78,12 @@ class TorchDevicePlatform(Platform):
             raise ValueError(f"unsupported dtype {dtype!r}; use one of {sorted(_DTYPES)}")
         self.dtype = name
         self.synthetic = bool(synthetic)
-        # The synthetic model runs on the host and never needs a card.
-        self.device = None if self.synthetic else resolve_device(device)
+        # The synthetic model runs on the host and never needs a card (or torch).
+        self.device = None
+        if not self.synthetic:
+            from repro_torch.device import resolve_device
+
+            self.device = resolve_device(device)
         self._cache: dict[tuple, float] = {}
 
     def _on_card(self) -> bool:
@@ -87,6 +92,8 @@ class TorchDevicePlatform(Platform):
     def cache_key(self) -> str:
         if self.synthetic:
             return f"{self.name}|dtype={self.dtype}|repeats={self.repeats}|synthetic"
+        import torch
+
         card = torch.cuda.get_device_name(self.device) if self._on_card() else "cpu"
         return f"{self.name}|device={card}|dtype={self.dtype}|repeats={self.repeats}"
 
@@ -145,7 +152,9 @@ class TorchDevicePlatform(Platform):
         return 2.0 * em * ek * en / self.SYN_FLOPS + self.SYN_OVERHEAD_S
 
     def _wallclock_time(self, m: int, k: int, n: int) -> float:
-        dt = _DTYPES[self.dtype]
+        import torch
+
+        dt = getattr(torch, self.dtype)
         a = torch.ones((m, k), dtype=dt, device=self.device)
         b = torch.ones((k, n), dtype=dt, device=self.device)
         c = torch.empty((m, n), dtype=dt, device=self.device)
@@ -156,6 +165,8 @@ class TorchDevicePlatform(Platform):
 
     def _sample(self, a: torch.Tensor, b: torch.Tensor, c: torch.Tensor) -> float:
         """Seconds per launch over ``LAUNCHES_PER_SAMPLE`` back-to-back launches."""
+        import torch
+
         if not self._on_card():
             t0 = time.perf_counter()
             for _ in range(LAUNCHES_PER_SAMPLE):

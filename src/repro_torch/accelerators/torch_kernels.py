@@ -32,11 +32,8 @@ Eager torch does not retrace, so the rows are not padded to buckets.
 from __future__ import annotations
 
 import numpy as np
-import torch
 
 from repro_torch.core.torch_predict import resolve_backend
-
-F64 = torch.float64
 
 
 def _device(platform) -> torch.device | None:
@@ -49,6 +46,8 @@ class _Columns:
     """A batch's int64 columns on the device, moved there in one copy."""
 
     def __init__(self, batch, device: torch.device) -> None:
+        import torch
+
         self.params = batch.params
         self.values = torch.tensor(batch.values, dtype=torch.int64, device=device)
 
@@ -61,7 +60,9 @@ class _Columns:
 
 
 def _const(value: float, device: torch.device) -> torch.Tensor:
-    return torch.tensor(value, dtype=F64, device=device)
+    import torch
+
+    return torch.tensor(value, dtype=torch.float64, device=device)
 
 
 def _pad(v, m: int):
@@ -71,31 +72,33 @@ def _pad(v, m: int):
 # ------------------------------------------------------------------ TPU v5e
 def _tpu_terms(layer_type: str, col: _Columns, kv, chip):
     """(flops, bytes) per row: ``TPUv5eSim._terms_batch`` in torch."""
+    import torch
+
     mxu, sublane = chip.mxu, chip.sublane
     if layer_type == "dense":
         m = _pad(col("tokens"), sublane)
         k = _pad(col("d_in"), mxu)
         n = _pad(col("d_out"), mxu)
-        return 2.0 * m.to(F64) * k * n, 2.0 * (m * k + m * n + k * n).to(F64)
+        return 2.0 * m.to(torch.float64) * k * n, 2.0 * (m * k + m * n + k * n).to(torch.float64)
     if layer_type == "attention_prefill":
         b, h, dh = col("B"), col("H"), _pad(col("Dh"), mxu)
         kvh = torch.clamp(h // kv, min=1)
         s = _pad(col("S"), mxu)
-        flops = 2.0 * b.to(F64) * h * s * s * dh
-        return flops, 2.0 * (b * h * s * dh + 2 * b * kvh * s * dh + b * h * s * dh).to(F64)
+        flops = 2.0 * b.to(torch.float64) * h * s * s * dh
+        return flops, 2.0 * (b * h * s * dh + 2 * b * kvh * s * dh + b * h * s * dh).to(torch.float64)
     if layer_type == "attention_decode":
         b = _pad(col("B"), sublane)
         h, dh = col("H"), _pad(col("Dh"), mxu)
         kvh = torch.clamp(h // kv, min=1)
         s = _pad(col("S_kv"), chip.kv_page)
-        return 4.0 * b.to(F64) * h * s * dh, 2.0 * (2 * b * kvh * s * dh + 2 * b * h * dh).to(F64)
+        return 4.0 * b.to(torch.float64) * h * s * dh, 2.0 * (2 * b * kvh * s * dh + 2 * b * h * dh).to(torch.float64)
     if layer_type == "moe_gemm":
         e, topk = col("E"), col("topk")
         per_expert = _pad(-(-(col("tokens") * topk) // e), sublane)
         dm = _pad(col("d_model"), mxu)
         df = _pad(col("d_ff"), mxu)
-        flops = 3.0 * 2.0 * e.to(F64) * per_expert * dm * df
-        return flops, 2.0 * (3 * e * dm * df + e * per_expert * (2 * dm + 2 * df)).to(F64)
+        flops = 3.0 * 2.0 * e.to(torch.float64) * per_expert * dm * df
+        return flops, 2.0 * (3 * e * dm * df + e * per_expert * (2 * dm + 2 * df)).to(torch.float64)
     if layer_type == "ssd_scan":
         b, h = col("B"), _pad(col("H"), sublane)
         p = _pad(col("P"), mxu)
@@ -103,19 +106,21 @@ def _tpu_terms(layer_type: str, col: _Columns, kv, chip):
         s = _pad(col("S"), chip.ssd_chunk)
         q = chip.ssd_chunk
         nchunks = s // q
-        nf, pf = n.to(F64), p.to(F64)
+        nf, pf = n.to(torch.float64), p.to(torch.float64)
         per_chunk = 2.0 * q * q * nf + 2.0 * q * q * pf + 4.0 * q * nf * p
         flops = b * h * nchunks * per_chunk
-        return flops, 2.0 * b.to(F64) * s * (h * p * 2 + 2 * n + h)
+        return flops, 2.0 * b.to(torch.float64) * s * (h * p * 2 + 2 * n + h)
     if layer_type == "embed":
         t, dm = col("tokens"), col("d_model")
-        tf = t.to(F64)
-        return torch.zeros(t.shape, dtype=F64, device=t.device), 2.0 * tf * dm * 2 + 4.0 * tf
+        tf = t.to(torch.float64)
+        return torch.zeros(t.shape, dtype=torch.float64, device=t.device), 2.0 * tf * dm * 2 + 4.0 * tf
     raise KeyError(layer_type)
 
 
 def tpu_measure_batch(platform, layer_type: str, batch) -> np.ndarray | None:
     """``TPUv5eSim.measure_batch`` in torch (noise-free mode only)."""
+    import torch
+
     if platform.noise > 0 or len(batch) == 0 or layer_type not in platform.layer_types():
         return None
     dev = _device(platform)
@@ -133,6 +138,8 @@ def tpu_measure_batch(platform, layer_type: str, batch) -> np.ndarray | None:
 # --------------------------------------------------------------- UltraTrail
 def ultratrail_measure_batch(platform, layer_type: str, batch) -> np.ndarray | None:
     """``UltraTrailSim.measure_batch`` in torch."""
+    import torch
+
     if layer_type != "conv1d" or len(batch) == 0:
         return None
     dev = _device(platform)
@@ -144,21 +151,25 @@ def ultratrail_measure_batch(platform, layer_type: str, batch) -> np.ndarray | N
     w_out = torch.clamp((col("C_w") + 2 * col("pad") - col("F")) // col("s") + 1, min=1)
     mac_cycles = c_tiles * k_tiles * w_out * col("F")
     post_cycles = k_tiles * w_out
-    cycles = (mac_cycles + post_cycles).to(F64) + _const(platform.OVERHEAD_CYCLES, dev)
+    cycles = (mac_cycles + post_cycles).to(torch.float64) + _const(platform.OVERHEAD_CYCLES, dev)
     return (cycles / _const(platform.CLOCK_HZ, dev)).cpu().numpy()
 
 
 # ---------------------------------------------------------------------- VTA
 def _vta_gemm_cycles(m, k, n, tile: int, io_lanes: torch.Tensor) -> torch.Tensor:
+    import torch
+
     kt = -(-k // tile)
     nt = -(-n // tile)
     compute = m * kt * nt
-    io = (m * kt * tile + kt * nt * tile**2).to(F64) / io_lanes
-    return torch.maximum(compute.to(F64), io)
+    io = (m * kt * tile + kt * nt * tile**2).to(torch.float64) / io_lanes
+    return torch.maximum(compute.to(torch.float64), io)
 
 
 def vta_measure_batch(platform, layer_type: str, batch) -> np.ndarray | None:
     """``VTASim.measure_batch`` in torch."""
+    import torch
+
     if layer_type not in ("conv2d", "fully_connected") or len(batch) == 0:
         return None
     dev = _device(platform)

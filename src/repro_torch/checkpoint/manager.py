@@ -25,10 +25,10 @@ import json
 import os
 import re
 import shutil
+import sys
 from typing import Any
 
 import numpy as np
-import torch
 
 
 def journal_path(directory: str, name: str = "measurements") -> str:
@@ -48,12 +48,22 @@ _BF16_WORDS = np.dtype("V2")
 
 
 def _is_bf16(v: Any) -> bool:
-    return isinstance(v, torch.Tensor) and v.dtype == torch.bfloat16
+    return _is_tensor(v) and str(v.dtype) == "torch.bfloat16"
+
+
+def _is_tensor(v: Any) -> bool:
+    """A torch tensor, told without importing torch: none exists before torch is imported."""
+    torch = sys.modules.get("torch")
+    return torch is not None and isinstance(v, torch.Tensor)
 
 
 def _to_host(v: Any) -> np.ndarray:
     """Gather one leaf to a host numpy array (a bf16 tensor as ``|V2`` words)."""
-    if isinstance(v, torch.Tensor):
+    if isinstance(v, (np.ndarray, np.generic, int, float, bool, list, tuple)):
+        return np.asarray(v)
+    if _is_tensor(v):
+        import torch
+
         v = v.detach().cpu()
         if v.dtype == torch.bfloat16:
             return v.contiguous().view(torch.int16).numpy().view(_BF16_WORDS)
@@ -64,6 +74,8 @@ def _to_host(v: Any) -> np.ndarray:
 def _from_host(a: np.ndarray, like: Any) -> Any:
     """A restored leaf: a bf16 tensor where the skeleton holds one, else the array."""
     if _is_bf16(like):
+        import torch
+
         return torch.from_numpy(a.view(np.int16)).view(torch.bfloat16).to(like.device)
     return a
 

@@ -46,9 +46,7 @@ Eager torch does not retrace, so nothing here buckets rows or counts traces;
 from __future__ import annotations
 
 import numpy as np
-import torch
 
-from repro_torch.device import resolve_device
 from repro_torch.obs.metrics import metrics as obs_metrics
 
 BACKENDS = ("torch", "numpy")
@@ -57,14 +55,22 @@ BACKENDS = ("torch", "numpy")
 def resolve_backend(
     backend: str | torch.device | None = None, device: str | torch.device | None = None
 ) -> str | torch.device:
-    """``"numpy"``, or the ``torch.device`` the torch backend runs on."""
-    if isinstance(backend, torch.device):
-        return backend
+    """``"numpy"``, or the ``torch.device`` the torch backend runs on.
+
+    The numpy backend never imports torch.
+    """
+    if backend is not None and not isinstance(backend, str):
+        import torch
+
+        if isinstance(backend, torch.device):
+            return backend
     choice = "torch" if backend is None else backend
     if choice not in BACKENDS:
         raise ValueError(f"unknown predict backend {choice!r}; expected one of {BACKENDS}")
     if choice == "numpy":
         return "numpy"
+    from repro_torch.device import resolve_device
+
     return resolve_device(device)
 
 
@@ -94,6 +100,8 @@ class ForestEngine:
     """
 
     def __init__(self, stack, n_trees: int, device: torch.device) -> None:
+        import torch
+
         self.device = device
         self.feature = torch.as_tensor(stack.feature, dtype=torch.int64, device=device)
         self.threshold = torch.as_tensor(stack.threshold, device=device)
@@ -111,6 +119,8 @@ class ForestEngine:
         Every (tree, sample) pair advances while its node is not a leaf; a
         pair that reached its leaf stays there for the remaining steps.
         """
+        import torch
+
         T = self.feature.shape[0]
         n = X.shape[0]
         Xt = X.t()  # (d, n): gather each pair's feature by row index
@@ -143,6 +153,8 @@ def _engine(forest, device: torch.device) -> ForestEngine:
 
 def forest_predict_raw(forest, X: np.ndarray, device: torch.device) -> np.ndarray:
     """``RandomForestRegressor.predict``'s raw mean on ``device``, bitwise equal to numpy."""
+    import torch
+
     obs_metrics().inc("torch.forest.calls")
     Xd = torch.as_tensor(np.asarray(X, dtype=np.float64), device=device)
     return _engine(forest, device).traverse(Xd).cpu().numpy()
@@ -158,6 +170,8 @@ def predict_network_batch_torch(
     layers: the numpy path owns those semantics (including the
     empty-overlap-block ``ValueError``).
     """
+    import torch
+
     n_blocks = len(batch)
     counts = batch.layer_counts()
     if n_blocks == 0 or np.any(counts == 0):

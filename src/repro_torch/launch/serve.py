@@ -6,20 +6,32 @@
       --batch 4 --prompt-len 512 --gen 32
   PYTHONPATH=src python -m repro_torch.launch.serve --arch olmoe-1b-7b \
       --batch 4 --prompt-len 512 --gen 32
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch zamba2-2.7b \
+      --batch 4 --prompt-len 512 --gen 32
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch whisper-medium \
+      --batch 4 --prompt-len 416 --gen 32
   PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen2-1.5b \
       --estimate-only --device cpu --hub-dir /tmp/hub --workers 2
   PYTHONPATH=src python -m repro_torch.launch.serve --fsck --hub-dir /tmp/hub
   PYTHONPATH=src python -m repro_torch.launch.serve --serve-oracle \
       --hub-dir /tmp/hub --port 7070 --warm-platforms 'tpu_v5e[gray]'
 
-Ported from ``repro.launch.serve``: the model-run path for the dense, moe
-and ssm families, and the oracle estimate of a decode step.  It runs on
-``cuda`` unless ``--device cpu`` is given, and raises without a card.  On
-the card the decode step runs as a captured CUDA graph (``generate``).  One
-departure: ``--attention-impl`` (default ``flash_pallas``) overrides the
-config's attention route, so by default the cached prefill of a dense or moe
-model runs the hand-written Hopper flash-attention kernel.  A mamba2 prefill
-runs the hand-written SSD-scan kernel on the card whatever the flag says.
+Ported from ``repro.launch.serve``: the model-run path of every family, and
+the oracle estimate of a decode step.  It runs on ``cuda`` unless ``--device
+cpu`` is given, and raises without a card.  On the card the decode step runs
+as a captured CUDA graph (``generate``).  As in the reference, whisper's
+prompt comes with random 0.1-scaled frames (``encoder_seq`` of them) and
+qwen2-vl's with no vision embeddings.  One departure: ``--attention-impl``
+(default ``flash_pallas``) overrides the config's attention route, so by
+default every causal cached prefill runs the hand-written Hopper
+flash-attention kernel; whisper's encoder and cross-attention are not
+causal and take the chunked route.  A mamba layer's prefill (mamba2,
+zamba2) runs the hand-written SSD-scan kernel on the card whatever the flag
+says.
+
+torch and the model stack are imported inside the functions that run a
+model, so ``--estimate-only``, ``--fsck`` and ``--serve-oracle`` (and an
+import of this module) do not load torch, as the reference keeps jax out.
 
 ``--estimate`` first prints a PR-oracle prediction of one decode step on
 the simulated TPU-v5e platform (``tpu_v5e[gray]``, an analytic model, not
@@ -45,22 +57,24 @@ import dataclasses
 import time
 
 import numpy as np
-import torch
 
 from repro_torch.configs import get_config
-from repro_torch.device import resolve_device
-from repro_torch.models import transformer as T
 from repro_torch.models.config import reduced
-from repro_torch.models.kvcache import init_cache
-from repro_torch.train.steps import capture_serve_step, make_serve_step
 
 
-@torch.no_grad()
-def generate(cfg, params, prompts, gen_len: int, device: torch.device | str | None = None):
+def generate(cfg, params, prompts, gen_len: int, device=None, extras: dict | None = None):
     """Greedy generation: prefill via forward-with-cache, then decode steps.
 
-    prompts: (B, S) integer array or tensor.  Returns (B, gen_len) int64
-    tokens on ``device`` (default ``cuda``), where ``params`` must live.
+    prompts: (B, S) integer array or tensor; ``extras`` adds the batch's
+    other inputs as the reference's ``generate`` does (``frames`` for
+    whisper, ``vision_embeds`` for qwen2-vl), arrays or tensors.  Returns
+    (B, gen_len) int64 tokens on ``device`` (default ``cuda``), where
+    ``params`` must live.
+
+    The cache holds S + gen_len positions, sized from the prompt alone as in
+    the reference, so vision embeddings in front of the prompt overflow it:
+    the reference fails there (``launch/serve.py:45``), and so does this
+    function, with a ``ValueError`` before any work.
 
     The prefill runs eager, once.  On the card the decode step runs as the
     reference's runs under ``jax.jit``, compiled: one eager step warms up and
@@ -68,29 +82,49 @@ def generate(cfg, params, prompts, gen_len: int, device: torch.device | str | No
     the other ``gen_len - 2`` steps; a failed capture or replay raises.  On
     the CPU every step runs eager.
     """
+    import torch
+
+    from repro_torch.device import resolve_device
+    from repro_torch.models import transformer as T
+    from repro_torch.models.kvcache import init_cache
+    from repro_torch.train.steps import capture_serve_step, make_serve_step
+
     dev = resolve_device(device)
     if params["embed"].device.type != dev.type:
         raise ValueError(f"params live on {params['embed'].device}, generate asked for {dev}")
     tokens = torch.as_tensor(np.asarray(prompts), dtype=torch.long, device=dev)
     b, s = tokens.shape
+    batch = {"tokens": tokens}
+    for k, v in (extras or {}).items():
+        batch[k] = v.to(dev) if isinstance(v, torch.Tensor) else torch.as_tensor(np.asarray(v), device=dev)
     # A decode step writes at the cache's device-side length with no bounds
     # check; this cache holds the prompt and every step's write (the last at
     # position s + gen_len - 2), which settles the room on the host, once.
+    n_vis = batch["vision_embeds"].shape[1] if "vision_embeds" in batch else 0
+    if n_vis + s + gen_len - 1 > s + gen_len:
+        raise ValueError(
+            f"{n_vis} vision tokens before a prompt of {s} and {gen_len - 1} decode steps do not fit "
+            f"the cache of {s + gen_len} positions that generate sizes from the prompt, as the "
+            f"reference's does"
+        )
     cache = init_cache(cfg, b, s + gen_len, dev)
+    if cfg.family == "audio":
+        cache.pop("enc_kv")  # computed by the prefill
 
-    logits, _, cache = T.forward(params, cfg, {"tokens": tokens}, cache)
-    out = [torch.argmax(logits[:, -1, :], dim=-1)]
-    if dev.type == "cuda" and gen_len > 1:
-        step = capture_serve_step(cfg, params, cache, {"tokens": out[-1][:, None]})
-        out.append(step.tokens[:, 0].clone())
-        for _ in range(gen_len - 2):
-            out.append(step.replay()[:, 0].clone())
+    with torch.no_grad():
+        logits, _, cache = T.forward(params, cfg, batch, cache)
+        out = [torch.argmax(logits[:, -1, :], dim=-1)]
+        if dev.type == "cuda" and gen_len > 1:
+            step = capture_serve_step(cfg, params, cache, {"tokens": out[-1][:, None]})
+            out.append(step.tokens[:, 0].clone())
+            for _ in range(gen_len - 2):
+                out.append(step.replay()[:, 0].clone())
+            return torch.stack(out, dim=1)
+        serve_step = make_serve_step(cfg)
+        for _ in range(gen_len - 1):
+            next_tok, cache = serve_step(params, cache, {"tokens": out[-1][:, None]})
+            out.append(next_tok)
         return torch.stack(out, dim=1)
-    serve_step = make_serve_step(cfg)
-    for _ in range(gen_len - 1):
-        next_tok, cache = serve_step(params, cache, {"tokens": out[-1][:, None]})
-        out.append(next_tok)
-    return torch.stack(out, dim=1)
 
 
 #: the estimate's platform, as a hub names it, and the layer types it trains
@@ -220,6 +254,8 @@ def serve_oracle(args) -> None:
 
     if not args.hub_dir:
         raise SystemExit("--serve-oracle requires --hub-dir (a trained EstimatorHub)")
+    from repro_torch.device import resolve_device
+
     resolve_device(args.device)
     spec = ServeSpec(
         hub_dir=args.hub_dir,
@@ -345,13 +381,23 @@ def main(argv: list[str] | None = None) -> int:
               f"(~{args.batch / max(t_step, 1e-12):.0f} tok/s)")
         if args.estimate_only:
             return 0
+    import torch
+
+    from repro_torch.device import resolve_device
+    from repro_torch.models import transformer as T
+
     cfg = dataclasses.replace(cfg, attention_impl=args.attention_impl)
     dev = resolve_device(args.device)
     params = T.init_params(cfg, torch.Generator(device=dev).manual_seed(0), dev)
     rng = np.random.default_rng(0)
     prompts = rng.integers(1, cfg.vocab, size=(args.batch, args.prompt_len))
+    extras = {}
+    if cfg.family == "audio":
+        extras["frames"] = rng.standard_normal(
+            (args.batch, cfg.encoder_seq, cfg.d_model)
+        ).astype(np.float32) * 0.1
     t0 = time.perf_counter()
-    tokens = generate(cfg, params, prompts, args.gen, dev)
+    tokens = generate(cfg, params, prompts, args.gen, dev, extras)
     if dev.type == "cuda":
         torch.cuda.synchronize(dev)
     dt = time.perf_counter() - t0

@@ -5,7 +5,9 @@ the flash kernel, scanning KV blocks of ``attention_block_k`` keys;
 ``full_attention`` (``xla_full``, and every decode step) materialises the
 scores.  ``attention_impl="flash_pallas"`` sends causal attention over more
 than one query, the cached prefill, to the hand-written Hopper kernel
-(``repro_torch.kernels.ops.flash_attention``).
+(``repro_torch.kernels.ops.flash_attention``).  Non-causal attention (whisper's
+encoder and every cross-attention) takes the chunked route, or ``full_attention``
+for one query, as in the reference.
 
 On one device the reference's head policy is always ``"kv_sharded"``, so the
 port has no head policy; the multi-chip cores (``_q_sharded_core``,
@@ -143,10 +145,12 @@ def self_attention(
     """
     q, k, v = qkv_proj(x, p, cfg)
     if use_rope:
-        if cfg.mrope:
-            raise NotImplementedError("M-RoPE (family 'vlm') is not ported yet")
-        q = L.apply_rope(q, positions, cfg.rope_theta)
-        k = L.apply_rope(k, positions, cfg.rope_theta)
+        if cfg.mrope and positions.ndim == 3:
+            q = L.apply_mrope(q, positions, cfg.rope_theta, cfg.mrope_sections)
+            k = L.apply_mrope(k, positions, cfg.rope_theta, cfg.mrope_sections)
+        else:
+            q = L.apply_rope(q, positions, cfg.rope_theta)
+            k = L.apply_rope(k, positions, cfg.rope_theta)
     new_cache = None
     if cache is not None:
         ck, cv, idx = cache["k"], cache["v"], cache["len"]
@@ -168,3 +172,24 @@ def self_attention(
     else:
         o = attention_core(q, k, v, cfg, causal=causal, q_offset=0)
     return out_proj(o, p), new_cache
+
+
+def cross_attention(x: torch.Tensor, p: dict, cfg: ModelConfig, enc_kv: tuple[torch.Tensor, torch.Tensor]):
+    """Whisper-style cross-attention; enc_kv precomputed (B, S_enc, KV, Dh) each.
+
+    Non-causal, so never the flash kernel: the chunked route over the
+    encoder's keys, or ``full_attention`` for a decode step's one query.
+    """
+    b, s, _ = x.shape
+    q = L.dense(x, p["wq"], p.get("bq")).reshape(b, s, cfg.n_heads, cfg.head_dim)
+    k, v = enc_kv
+    o = attention_core(q, k.to(q.dtype), v.to(q.dtype), cfg, causal=False)
+    return out_proj(o, p)
+
+
+def encoder_kv(enc_out: torch.Tensor, p: dict, cfg: ModelConfig):
+    """Cross-attention K/V of one decoder layer from the encoder's output."""
+    b, s, _ = enc_out.shape
+    k = L.dense(enc_out, p["wk"], p.get("bk")).reshape(b, s, cfg.n_kv_heads, cfg.head_dim)
+    v = L.dense(enc_out, p["wv"], p.get("bv")).reshape(b, s, cfg.n_kv_heads, cfg.head_dim)
+    return k, v

@@ -14,6 +14,8 @@ what each call sees.  Norm scales stay fp32, as the norms read them in fp32.
 
 from __future__ import annotations
 
+import math
+
 import torch
 import torch.nn.functional as F
 
@@ -64,6 +66,45 @@ def apply_rope(x: torch.Tensor, positions: torch.Tensor, theta: float) -> torch.
     return out.to(x.dtype)
 
 
+def apply_mrope(
+    x: torch.Tensor, positions: torch.Tensor, theta: float, sections: tuple[int, int, int]
+) -> torch.Tensor:
+    """Multimodal RoPE (Qwen2-VL): x (B, S, H, D); positions (3, B, S) for the (t, h, w) streams.
+
+    The rotary half-dim is split into ``sections``; each section rotates by
+    its own position stream, in fp32 as ``apply_rope``.  Text tokens have
+    t == h == w, where M-RoPE is RoPE.  The streams are laid out per
+    frequency by slicing, so no index table is copied to the device.
+    """
+    d = x.shape[-1]
+    if sum(sections) != d // 2:
+        raise ValueError(f"M-RoPE sections {sections} do not cover the rotary half-dim {d // 2}")
+    freqs = rope_freqs(d, theta, x.device).float()  # (d/2,)
+    pos = positions.float()
+    pos_per_freq = torch.cat(
+        [pos[i, ..., None].expand(*pos.shape[1:], n) for i, n in enumerate(sections)], dim=-1
+    )  # (B, S, d/2)
+    angles = pos_per_freq * freqs
+    cos = torch.cos(angles)[:, :, None, :]
+    sin = torch.sin(angles)[:, :, None, :]
+    x1, x2 = x.float().chunk(2, dim=-1)
+    out = torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin], dim=-1)
+    return out.to(x.dtype)
+
+
+def sinusoidal_positions(seq: int, d_model: int, device: torch.device | str) -> torch.Tensor:
+    """Whisper-style fixed sinusoidal embeddings, (seq, d_model) fp32.
+
+    Computed in fp64 and rounded once to fp32, as the reference's numpy
+    version; on ``device``, so no table is copied to it.
+    """
+    half = d_model // 2
+    pos = torch.arange(seq, dtype=torch.float64, device=device)[:, None]
+    inv = torch.exp(-math.log(10000.0) * torch.arange(half, dtype=torch.float64, device=device) / (half - 1))
+    ang = pos * inv[None, :]
+    return torch.cat([torch.sin(ang), torch.cos(ang)], dim=1).float()
+
+
 # ------------------------------------------------------------------ MLP
 def silu(x: torch.Tensor) -> torch.Tensor:
     """``jax.nn.silu``'s own steps, ``x * (1 / (1 + exp(-x)))``, each rounded to x's dtype.
@@ -75,12 +116,26 @@ def silu(x: torch.Tensor) -> torch.Tensor:
     return x * (1 / (1 + torch.exp(-x)))
 
 
+#: sqrt(2 / pi) in bf16, as ``jax.nn.gelu`` casts it to its input's dtype
+_SQRT_2_OVER_PI_BF16 = float(torch.tensor(math.sqrt(2 / math.pi), dtype=torch.bfloat16))
+
+
+def gelu_tanh(x: torch.Tensor) -> torch.Tensor:
+    """``jax.nn.gelu(approximate=True)``'s own steps on a bf16 ``x`` (``dense``'s output), each rounded to bf16.
+
+    ``F.gelu`` rounds once; like ``silu``, the per-step roundings of the
+    reference move whisper's outputs by a bf16 step in many elements.
+    """
+    cdf = 0.5 * (1.0 + torch.tanh(_SQRT_2_OVER_PI_BF16 * (x + 0.044715 * (x * (x * x)))))
+    return x * cdf
+
+
 def mlp_block(x: torch.Tensor, p: dict, kind: str) -> torch.Tensor:
     """Gated (swiglu) or plain gelu MLP."""
     if kind == "swiglu":
         h = dense(x, p["w_in"]) * F.silu(dense(x, p["w_gate"]))
     else:
-        h = F.gelu(dense(x, p["w_in"], p.get("b_in")), approximate="tanh")
+        h = gelu_tanh(dense(x, p["w_in"], p.get("b_in")))
     return dense(h, p["w_out"], p.get("b_out"))
 
 

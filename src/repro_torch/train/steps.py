@@ -14,6 +14,7 @@ import dataclasses
 import torch
 
 from repro_torch.models import transformer as T
+from repro_torch.models.kvcache import advance
 from repro_torch.models.config import ModelConfig
 
 
@@ -40,12 +41,15 @@ def make_serve_step(cfg: ModelConfig):
 def serve_step_in_place(cfg: ModelConfig, params, cache: dict, tokens: torch.Tensor) -> torch.Tensor:
     """One greedy step that updates ``cache`` and ``tokens`` in place; returns the logits.
 
-    The new keys, values or states land in the cache's buffers, ``len``
-    advances by one in place, and the next token overwrites ``tokens``, so
-    the step's inputs and outputs are the same tensors from call to call.
+    The new keys, values or states land in the cache's buffers, every
+    ``len`` advances by one in place (the hybrid's per-group lengths too),
+    and the next token overwrites ``tokens``, so the step's inputs and
+    outputs are the same tensors from call to call; whisper's step reads the
+    encoder's K/V that the prefill left in the cache, the same buffers on
+    every call.
     """
     logits, _, _ = T.forward(params, cfg, {"tokens": tokens}, cache)
-    cache["len"] += 1
+    advance(cache, 1)
     tokens.copy_(torch.argmax(logits[:, -1, :], dim=-1)[:, None])
     return logits
 

@@ -26,7 +26,8 @@ from repro_torch.models.config import ModelConfig
 from repro_torch.models.layers import COMPUTE_DTYPE
 from repro_torch.models.transformer import require_ported
 
-_FP32 = frozenset({"ln1", "ln2", "ln", "final_norm", "norm", "dt_bias", "a_log", "d_skip"})
+_FP32 = frozenset({"ln1", "ln2", "ln", "lnx", "final_norm", "enc_norm", "norm", "dt_bias", "a_log",
+                   "d_skip"})
 
 
 def _leaf(name: str, a: np.ndarray, dev: torch.device) -> torch.Tensor:
@@ -34,20 +35,29 @@ def _leaf(name: str, a: np.ndarray, dev: torch.device) -> torch.Tensor:
     return t.to(device=dev, dtype=torch.float32 if name in _FP32 else COMPUTE_DTYPE)
 
 
+def _layer(stacked: dict, index: tuple, dev: torch.device) -> dict:
+    """One layer's dict: every leaf of ``stacked`` at ``index`` on its leading axes."""
+    return {name: _layer(sub, index, dev) if isinstance(sub, dict) else _leaf(name, sub[index], dev)
+            for name, sub in stacked.items()}
+
+
 def from_jax_params(tree: dict, cfg: ModelConfig, device: torch.device | str | None = None) -> dict:
-    """The reference's parameter pytree (numpy leaves) -> the port's parameters."""
+    """The reference's parameter pytree (numpy leaves) -> the port's parameters.
+
+    hybrid: ``layers`` stacked (groups, attn_every, ...) becomes a list of
+    groups of layers, and the unstacked ``shared`` block one dict; audio:
+    ``enc_layers`` a list too, beside ``enc_norm``.
+    """
     require_ported(cfg)
     dev = resolve_device(device)
-    params = {k: _leaf(k, tree[k], dev) for k in ("embed", "final_norm", "lm_head") if k in tree}
-    stacked = tree["layers"]
-    layers = []
-    for i in range(cfg.n_layers):
-        layer = {}
-        for name, sub in stacked.items():
-            if isinstance(sub, dict):
-                layer[name] = {k: _leaf(k, a[i], dev) for k, a in sub.items()}
-            else:
-                layer[name] = _leaf(name, sub[i], dev)
-        layers.append(layer)
-    params["layers"] = layers
+    params = {k: _leaf(k, tree[k], dev) for k in ("embed", "final_norm", "lm_head", "enc_norm") if k in tree}
+    if cfg.family == "hybrid":
+        groups = cfg.n_layers // cfg.attn_every
+        params["layers"] = [[_layer(tree["layers"], (g, j), dev) for j in range(cfg.attn_every)]
+                            for g in range(groups)]
+        params["shared"] = _layer(tree["shared"], (), dev)
+        return params
+    params["layers"] = [_layer(tree["layers"], (i,), dev) for i in range(cfg.n_layers)]
+    if cfg.family == "audio":
+        params["enc_layers"] = [_layer(tree["enc_layers"], (i,), dev) for i in range(cfg.n_encoder_layers)]
     return params

@@ -20,9 +20,9 @@ from repro_torch.configs import get_config  # noqa: E402
 from repro_torch.models import transformer as TT  # noqa: E402
 from repro_torch.models.config import reduced  # noqa: E402
 from repro_torch.models.kvcache import init_cache  # noqa: E402
-from repro_torch.train.steps import capture_serve_step, make_serve_step  # noqa: E402
+from repro_torch.train.steps import capture_serve_step, make_serve_step, serve_step_in_place  # noqa: E402
 
-ARCHS = ("qwen2-1.5b", "mamba2-780m", "olmoe-1b-7b")
+ARCHS = ("qwen2-1.5b", "mamba2-780m", "olmoe-1b-7b", "zamba2-2.7b", "qwen2-vl-2b", "whisper-medium")
 HOST_READS = ("item", "tolist", "__bool__", "__int__", "__index__", "__float__")
 BATCH, PROMPT = 2, 12
 
@@ -30,10 +30,15 @@ BATCH, PROMPT = 2, 12
 def _prefilled(arch):
     cfg = dataclasses.replace(reduced(get_config(arch)), attention_impl="flash_pallas")
     params = TT.init_params(cfg, torch.Generator().manual_seed(0), "cpu")
-    prompts = torch.from_numpy(np.random.default_rng(0).integers(1, cfg.vocab, size=(BATCH, PROMPT)))
+    rng = np.random.default_rng(0)
+    batch = {"tokens": torch.from_numpy(rng.integers(1, cfg.vocab, size=(BATCH, PROMPT)))}
     cache = init_cache(cfg, BATCH, PROMPT + 4, "cpu")
+    if cfg.family == "audio":  # the prefill computes the encoder's K/V from the frames
+        cache.pop("enc_kv")
+        batch["frames"] = torch.from_numpy(rng.standard_normal((BATCH, cfg.encoder_seq, cfg.d_model))
+                                           .astype(np.float32) * 0.1)
     with torch.no_grad():
-        logits, _, cache = TT.forward(params, cfg, {"tokens": prompts}, cache)
+        logits, _, cache = TT.forward(params, cfg, batch, cache)
     return cfg, params, cache, logits[:, -1].argmax(-1)[:, None]
 
 
@@ -68,6 +73,25 @@ def test_decode_step_reads_no_tensor_value_on_the_host(arch, monkeypatch):
     assert torch.equal(got_tok, expect_tok)
     assert int(got_cache["len"]) == int(expect_cache["len"]) == PROMPT + 1
     assert int(fresh["len"]) == PROMPT  # forward returns a new len; a graph step advances it in place
+    if "attn" in fresh:  # the hybrid's per-group lengths, likewise
+        assert got_cache["attn"]["len"].tolist() == [PROMPT + 1] * len(fresh["attn"]["len"])
+        assert fresh["attn"]["len"].tolist() == [PROMPT] * len(fresh["attn"]["len"])
+
+
+@pytest.mark.parametrize("arch", ARCHS)
+def test_in_place_step_advances_every_len(arch):
+    """``serve_step_in_place`` (the captured body) advances ``len`` in place,
+    and the hybrid's per-group lengths with it, and keeps whisper's encoder K/V."""
+    cfg, params, cache, tok = _prefilled(arch)
+    kept = {k: v for k, v in cache.items()}
+    with torch.no_grad():
+        logits = serve_step_in_place(cfg, params, cache, tok)
+    assert logits.shape == (BATCH, 1, cfg.vocab)
+    assert int(cache["len"]) == PROMPT + 1 and cache["len"] is kept["len"]
+    if cfg.family == "hybrid":
+        assert cache["attn"]["len"].tolist() == [PROMPT + 1] * (cfg.n_layers // cfg.attn_every)
+    if cfg.family == "audio":
+        assert cache["enc_kv"] is kept["enc_kv"]
 
 
 def test_the_proxy_catches_a_host_read(monkeypatch):

@@ -28,6 +28,8 @@ def _port_modules() -> list[str]:
     mods = []
     for path in sorted(PORT.rglob("*.py")):
         parts = path.relative_to(PORT.parent).with_suffix("").parts
+        if parts[-1] == "__main__":  # importing it runs the program (``python -m``)
+            continue
         mods.append(".".join(parts[:-1] if parts[-1] == "__init__" else parts))
     return mods
 
