@@ -1,5 +1,5 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch port's serving paths, estimation pipeline, runtime and service on one NVIDIA GPU (the H100).
+"""Drive the PyTorch port's serving and training paths, estimation pipeline, runtime and service on one NVIDIA GPU (the H100).
 
   python3 chip_smoke.py
 
@@ -24,7 +24,19 @@ Phases, each failing loudly (an exception or a non-zero exit):
    the chunk), a long chain of 16 chunks from a unit-scale initial state
    (batch 1, S 2,048), and a B that is not 16-byte aligned: bf16 cases run
    the tensor-core split (``ssd_chunk_state``, ``ssd_state_pass``,
-   ``ssd_chunk_scan``), fp32 cases the CUDA-core kernels;
+   ``ssd_chunk_scan``), fp32 cases the CUDA-core kernels; and at
+   mamba2-780m's training shape (x (2, 4,096, 48, 64));
+3b. the scan's backward kernel (``csrc/ssd_scan_bwd.cu``) against its plain
+   version (autograd of ``ssd_scan_ref``), every gradient (dx, dlog_da, dB,
+   dC, dstate0) within ``SSD_BWD_TOL``, in fp32 and bf16, at the three shapes
+   of ``tests/test_kernels.py``, mamba2-780m's training shape x (2, 4,096,
+   48, 64) N 128, zamba2-2.7b's x (2, 4,096, 80, 64) N 64, a ragged S with a
+   nonzero initial state and d(final state), chunk 64, a part-filled tile
+   (P 24, N 16), batch 1 x 2,048 from a unit-scale initial state, and B and
+   C not 16-byte aligned; ``ops.ssd_scan`` under autograd
+   launching the forward and then the backward kernel; ``matmul_f32``'s
+   gradients at the lm_head's training shape against autograd of the fp32
+   product (``MATMUL_GRAD_TOL``); flash attention's refusal of autograd;
 4. the slices, each at full width and full depth with random bf16 weights
    from a seeded ``torch.Generator``, serving batch 4, prompt 512, gen 32
    through ``repro_torch.launch.serve.generate``:
@@ -91,7 +103,8 @@ Phases, each failing loudly (an exception or a non-zero exit):
    (``graph_ms``), beside its device time in torch.profiler (``device_ms``:
    the kernels' own time, summed over the kernels of 20 calls, over 20; the
    median of the three profiler sessions, among those that recorded the
-   most kernels), and the back-to-back CUDA-event time per call
+   most kernels; None, "not measured", when no session recorded a kernel),
+   and the back-to-back CUDA-event time per call
    (``event_ms``), which also counts the host whenever a call's dispatch
    outlasts its kernels; the MoE block's parts by ``device_ms``.
    The decode graph, per slice (``decode_graph``): one eager decode step
@@ -140,6 +153,26 @@ Phases, each failing loudly (an exception or a non-zero exit):
    must drain it to exit code 0; (d) each trace of (a) through
    ``repro_torch.obs.report``.  Its findings are the ``"runtime"`` and
    ``"service"`` fields of the ``{"estimation": ...}`` line;
+8. training (after 6c): (a) reduced mamba2-780m and qwen2-1.5b (remat
+   "full", batch 2, seq 200): one train step on the card against the same
+   step on the CPU, loss, grad norm and every gradient leaf within
+   ``TRAIN_REL_L2``, and the scan launches the layers dictate; (b)
+   mamba2-780m at full width and depth through ``repro_torch.launch.train``'s
+   ``Trainer``, batch 2 x 4,096 (``train_4k``'s sequence), random fp32
+   masters from a seeded ``torch.Generator``, ``AdamWConfig(lr=1e-3,
+   warmup_steps=0, total_steps=8)``: a run checkpointing every 2 steps fails
+   at step 5 and resumes from step 4, and an uninterrupted run beside it
+   must launch the forward scan 96 times a step (48 layers, and again in
+   remat's recompute) and the backward 48 times, with finite losses, the
+   last below the first, and the resumed losses and final parameters within
+   ``RESUME_TOL`` of it; (c) qwen2-1.5b at full width and depth, 3 steps of
+   ``make_train_step`` at the same shape, launching no kernel of the port.
+   Each prints a ``train`` line: step ms (CUDA events, the median after the
+   first step), tokens/s, peak memory, one step's device-busy ms, idle share
+   and kernels (torch.profiler), launches per step, the losses and
+   ``phase_seconds``; then the scan's forward and backward kernels are timed
+   at the training shape beside their plain versions (CUDA events) and
+   bounds;
 7. the script's total seconds, a ``{"lint": ...}`` line, a ``{"slice": ...}``
    line per model (with its ``decode_graph`` and its seconds), a
    ``{"kernels": [...]}`` line (``launches`` sums ``launches_by_slice``, one
@@ -151,7 +184,11 @@ Phases, each failing loudly (an exception or a non-zero exit):
    ``profiler_ms`` and the other ``*_profiler_ms`` torch.profiler's
    (``device_ms``), ``event_ms`` and the other ``*_event_ms`` the CUDA-event
    times of back-to-back calls;
-   ``bound_share`` is ``bound_ms / ms``), an ``{"estimation": ...}`` line,
+   ``bound_share`` is ``bound_ms / ms``; ``ssd_scan`` also counts the
+   training run's launches and times, under ``"train mamba2-780m"``, and
+   ``ssd_scan_bwd`` is timed at the training shape, its plain version by CUDA
+   events), a ``{"train": ...}`` line per model and a
+   ``{"train_reduced": ...}`` line (phase 8), an ``{"estimation": ...}`` line,
    then the result line, last:
    ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
 """
@@ -161,7 +198,9 @@ from __future__ import annotations
 import contextlib
 import dataclasses
 import json
+import math
 import signal
+import statistics
 import subprocess
 import sys
 import time
@@ -232,6 +271,20 @@ SERVICE_CLIENTS, SERVICE_REQUESTS, SERVICE_CONFIGS = 8, 40, 16
 
 BATCH, PROMPT, GEN, SEED = 4, 512, 32, 0
 LONG_PROMPT = 2048  # one sequence of 16 scan chunks: the split's serial pass and parallelism
+TRAIN_BATCH, TRAIN_SEQ = 2, 4096  # train_4k's sequence: 32 scan chunks a row
+# Phase 8: mamba2-780m's runs (steps, checkpoint period, the step that fails),
+# qwen2-1.5b's steps, and the kernels a training step may launch
+TRAIN_STEPS, TRAIN_CKPT_EVERY, TRAIN_FAIL_AT, QWEN_TRAIN_STEPS = 8, 2, 5, 3
+TRAIN_KERNELS = ("flash_attention", "ssd_scan", "ssd_scan_bwd")
+# A reduced train step on the card against the CPU: loss, grad norm and every
+# gradient leaf within a relative (L2) 2e-2, the CPU tests' bar against the
+# reference (tests/test_torch_train.py); the card runs the bf16 scan kernels
+# and cuBLAS, the CPU the plain fp32 scan, so their bf16 steps fall apart.
+TRAIN_REL_L2 = 2e-2
+# The resumed run against the uninterrupted one: every kernel of the step is
+# deterministic (the scan's backward uses no atomics), so they should agree
+# exactly; 1e-6 admits a library GEMM that picks another algorithm.
+RESUME_TOL = 1e-6
 WHISPER_PROMPT = 416  # prompt + GEN = 448 positions, whisper's decoder context
 KERNELS = ("flash_attention", "ssd_scan")
 SLICES = {  # arch -> (prompt length at full width, reduced prompt length for the card-vs-CPU check)
@@ -264,7 +317,7 @@ def cuda_time_ms(fn, reps: int, warmup: int = 2) -> float:
     return start.elapsed_time(end) / reps
 
 
-def device_ms(fn, calls: int = 20, warmup: int = 3, sessions: int = 3) -> dict:
+def device_ms(fn, calls: int = 20, warmup: int = 3, sessions: int = 3, retries: int = 3) -> dict:
     """Device time per call of ``fn``: ``ms``, ``kernels`` launched per call,
     ``top`` [(kernel, ms per call)] heaviest first, ``sessions_ms`` and
     ``sessions_kernels``.
@@ -280,7 +333,10 @@ def device_ms(fn, calls: int = 20, warmup: int = 3, sessions: int = 3) -> dict:
     most kernels are kept, of those the one with the median time.  The
     warm-up call is synchronised before the window opens: a call that
     returns before its kernels run (a CUDA-graph replay) would otherwise
-    spill them into it.
+    spill them into it.  Sessions that all recorded no kernel are followed by
+    up to ``retries`` more; if none of those records one either, ``ms`` is
+    None ("not measured") and ``kernels`` 0.  Whole sessions have come back
+    empty on the H100, three in a row once, with the kernels launched.
     """
     import torch
     from torch.profiler import ProfilerActivity, profile, schedule
@@ -289,7 +345,7 @@ def device_ms(fn, calls: int = 20, warmup: int = 3, sessions: int = 3) -> dict:
         fn()
     torch.cuda.synchronize()
     runs = []
-    for _ in range(sessions):
+    while len(runs) < sessions or (not any(r[1] for r in runs) and len(runs) < sessions + retries):
         with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
                      schedule=schedule(wait=0, warmup=1, active=calls, repeat=1)) as prof:
             for i in range(1 + calls):
@@ -304,10 +360,20 @@ def device_ms(fn, calls: int = 20, warmup: int = 3, sessions: int = 3) -> dict:
         runs.append((total_us / 1e3 / calls, sum(e.count for e in kernels) / calls, top))
     full = sorted((r for r in runs if r[1] == max(q[1] for q in runs)), key=lambda r: r[0])
     ms, kernels, top = full[len(full) // 2]
-    if ms <= 0:
-        raise RuntimeError("torch.profiler recorded no device time")
+    if not kernels:
+        log(f"torch.profiler recorded no kernel in {len(runs)} sessions: device time not measured")
+        ms = None
     return {"ms": ms, "kernels": kernels, "top": top, "sessions_ms": [r[0] for r in runs],
             "sessions_kernels": [r[1] for r in runs]}
+
+
+def fmt(x, spec: str = ".4f") -> str:
+    """``x`` formatted, or "not measured" for a profiler time that is None."""
+    return "not measured" if x is None else format(x, spec)
+
+
+def idle_share(busy_ms, wall_ms: float):
+    return None if busy_ms is None else 1.0 - busy_ms / wall_ms
 
 
 def graph_ms(fn, calls: int = 20, reps: int = 5) -> float:
@@ -494,6 +560,7 @@ def check_ssd() -> dict:
         ("chunk 64 vs 128 slice", BATCH, PROMPT, 48, 64, 128, bf16, True, 64, 128),
         ("one chunk bf16", 2, 100, 8, 64, 128, bf16, True, 128, 128),
         ("long chain s2048", 1, LONG_PROMPT, 48, 64, 128, bf16, True, 128, 128),
+        ("train mamba2-780m", TRAIN_BATCH, TRAIN_SEQ, 48, 64, 128, bf16, False, 128, 128),
     ]
     slice_err = {}
     for name, b, s, h, p, n, dt, state, chunk, plain_chunk in cases:
@@ -512,7 +579,7 @@ def check_ssd() -> dict:
             f"state={err_s:.3e} (atol={tol['atol']:g} rtol={tol['rtol']:g}) {'ok' if ok else 'FAIL'}")
         if not ok:
             raise AssertionError(f"ssd_scan [{name}] disagrees with its plain version")
-        if name in SLICES:
+        if name in SLICES or name.startswith("train "):
             slice_err[name] = max(err_y, err_s)
     # B not 16-byte aligned: the kernel reads it element by element
     x, la, bm, cm, s0 = ssd_inputs(gen, 2, 300, 4, 64, 128, bf16, True)
@@ -536,6 +603,144 @@ def check_ssd() -> dict:
     else:
         raise AssertionError("ssd_scan accepted head dim 12")
     return slice_err
+
+
+# The backward kernel's bars, each scaled by the largest magnitude of the
+# gradient it holds (gradients of long chunks sum many terms, so an absolute
+# bar fixed in advance would be loose for some and tight for others): fp32
+# atol = 2e-5 * max|g_ref| and rtol 2e-4, the XLA twin's bar
+# (tests/test_torch_ssm.py) scaled to the gradient; bf16 inputs
+# atol = 2e-2 * max|g_ref| and rtol 5e-2, the scan's own bf16 bar.  Both
+# versions compute in fp32 from the same (bf16-rounded) inputs; they differ
+# by the order of their fp32 sums and, for bf16, one rounding of dx, dB, dC.
+SSD_BWD_TOL = {"float32": (2e-5, 2e-4), "bfloat16": (2e-2, 5e-2)}
+# matmul_f32's backward against autograd of the same product in fp32: both
+# take one fp32 GEMM and round once to bf16, in cuBLAS's sum order each, so
+# they may differ by one bf16 step (2^-8 relative) where a sum lands near a
+# rounding boundary.
+MATMUL_GRAD_TOL = dict(atol=0.0, rtol=2 ** -7)
+
+
+def _within(got, want, atol_frac: float, rtol: float) -> tuple[bool, float]:
+    """``got`` within atol = ``atol_frac`` * max|want| and ``rtol`` of ``want``, all finite; and the max abs error."""
+    got, want = got.float(), want.float()
+    err = (got - want).abs()
+    ok = bool((err <= atol_frac * want.abs().max() + rtol * want.abs()).all()) and bool(got.isfinite().all())
+    return ok, err.max().item()
+
+
+def check_ssd_bwd() -> dict:
+    """Phase 3b: the scan's backward kernel against its plain version
+    (autograd of ``ssd_scan_ref``), every gradient within ``SSD_BWD_TOL``;
+    ``matmul_f32``'s gradients; flash's refusal under autograd.  Returns the
+    largest error over the gradients at mamba2-780m's training shape."""
+    import torch
+
+    from repro_torch.kernels import ops, ref
+    from repro_torch.models import layers as L
+
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 5)
+    f32, bf16 = torch.float32, torch.bfloat16
+    cases = [
+        # name, b, s, h, p, n, chunk, state0, d(final state); each in fp32 and bf16
+        ("test_kernels n64", 2, 256, 4, 64, 64, 128, False, False),
+        ("test_kernels ragged", 1, 300, 8, 64, 128, 128, False, False),
+        ("test_kernels n16", 1, 128, 2, 32, 16, 128, False, False),
+        ("mamba2-780m train", 2, TRAIN_SEQ, 48, 64, 128, 128, False, False),
+        ("zamba2-2.7b train", 2, TRAIN_SEQ, 80, 64, 64, 128, False, False),
+        ("ragged s200 state0 dstate", 2, 200, 8, 64, 128, 128, True, True),
+        ("chunk 64", 2, 300, 8, 64, 128, 64, True, True),
+        ("part tile p24 n16", 1, 300, 4, 24, 16, 64, True, True),
+        ("long chain s2048", 1, LONG_PROMPT, 48, 64, 128, 128, True, True),
+    ]
+    names = ("dx", "dlog_da", "dB", "dC", "dstate0")
+    train_err = 0.0
+    for name, b, s, h, p, n, chunk, state, dstate in cases:
+        for dt in (f32, bf16):
+            x, la, bm, cm, s0 = ssd_inputs(gen, b, s, h, p, n, dt, state)
+            dy = torch.randn((b, s, h, p), generator=gen, device="cuda").to(dt)
+            ds = torch.randn((b, h, p, n), generator=gen, device="cuda") if dstate else None
+            got = ops.ssd_scan_bwd(x, la, bm, cm, dy, ds, chunk=chunk, state0=s0)
+            torch.cuda.synchronize()
+            zero = torch.zeros((b, h, p, n), device="cuda")
+            want = ref.ssd_scan_bwd_ref(x, la, bm, cm, dy, zero if ds is None else ds, chunk=chunk, state0=s0)
+            torch.cuda.synchronize()
+            atol_frac, rtol = SSD_BWD_TOL[str(dt)[6:]]
+            errs, ok = [], True
+            for g_name, g, w in zip(names, got, want):
+                good, err = _within(g, w, atol_frac, rtol)
+                good = good and g.dtype == w.dtype and g.shape == w.shape
+                errs.append(f"{g_name} {err:.2e} (max|g| {w.float().abs().max().item():.2e})")
+                ok = ok and good
+                if name == "mamba2-780m train" and dt == bf16:
+                    train_err = max(train_err, err)
+            log(f"kernel ssd_scan_bwd [{name}] x{tuple(x.shape)} n={n} {str(dt)[6:]} chunk {chunk} "
+                f"state0={state} dstate={dstate}: max_abs_err {'; '.join(errs)} (atol={atol_frac:g} max|g_ref| "
+                f"rtol={rtol:g}) {'ok' if ok else 'FAIL'}")
+            if not ok:
+                raise AssertionError(f"ssd_scan_bwd [{name}] {dt} disagrees with its plain version")
+    # B and C not 16-byte aligned (the kernel loads them element by element)
+    x, la, bm, cm, s0 = ssd_inputs(gen, 2, 300, 4, 64, 128, bf16, True)
+    dy = torch.randn(x.shape, generator=gen, device="cuda").to(bf16)
+    ds = torch.randn((2, 4, 64, 128), generator=gen, device="cuda")
+    odd = []
+    for t in (bm, cm):
+        o = torch.empty(t.numel() + 1, dtype=bf16, device="cuda")[1:].view(t.shape)
+        o.copy_(t)
+        odd.append(o)
+    assert all(o.data_ptr() % 16 for o in odd)
+    got = ops.ssd_scan_bwd(x, la, *odd, dy, ds, state0=s0)
+    want = ref.ssd_scan_bwd_ref(x, la, bm, cm, dy, ds, state0=s0)
+    errs = [_within(g, w, *SSD_BWD_TOL["bfloat16"]) for g, w in zip(got, want)]
+    ok = all(e[0] for e in errs)
+    log(f"kernel ssd_scan_bwd [misaligned B and C] x{tuple(x.shape)} bf16: max_abs_err "
+        f"{'; '.join(f'{n} {e[1]:.2e}' for n, e in zip(names, errs))} {'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise AssertionError("ssd_scan_bwd [misaligned B and C] disagrees with its plain version")
+    # through the autograd function: the forward kernel, then the backward kernel
+    x, la, bm, cm, _ = ssd_inputs(gen, 2, 300, 8, 64, 128, bf16, False)
+    leaves = [t.clone().requires_grad_() for t in (x, la, bm, cm)]
+    fwd0, bwd0 = ops.ssd_scan.launches, ops.ssd_scan_bwd.launches
+    y, _ = ops.ssd_scan(*leaves)
+    y.float().square().sum().backward()
+    launched = (ops.ssd_scan.launches - fwd0, ops.ssd_scan_bwd.launches - bwd0)
+    want = ref.ssd_scan_bwd_ref(x, la, bm, cm, (2 * y.float()).to(bf16).detach(),
+                                torch.zeros((2, 8, 64, 128), device="cuda"))
+    ok = launched == (1, 1) and all(_within(t.grad, w, *SSD_BWD_TOL["bfloat16"])[0] for t, w in zip(leaves, want))
+    log(f"ssd_scan under autograd: launches (forward, backward) {launched}; gradients "
+        f"{'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise AssertionError("ssd_scan's autograd function does not run the two kernels or disagrees")
+
+    # matmul_f32: the lm_head's product at mamba2-780m's training shape
+    m, k, nv = 2 * TRAIN_SEQ, 1536, 50280
+    a = (torch.randn((m, k), generator=gen, device="cuda")).to(bf16).requires_grad_()
+    w = (torch.randn((k, nv), generator=gen, device="cuda") * k ** -0.5).to(bf16).requires_grad_()
+    g = torch.randn((m, nv), generator=gen, device="cuda") * 1e-3
+    out = L.matmul_f32(a, w)
+    ga, gw = torch.autograd.grad(out, (a, w), g)
+    a2, w2 = a.detach().requires_grad_(), w.detach().requires_grad_()
+    ra, rw = torch.autograd.grad(torch.mm(a2.float(), w2.float()), (a2, w2), g)
+    ok = out.dtype == f32 and ga.dtype == gw.dtype == bf16 and all(
+        torch.allclose(x_.float(), y_.float(), **MATMUL_GRAD_TOL) for x_, y_ in ((ga, ra), (gw, rw)))
+    log(f"matmul_f32 ({m}x{k}) x ({k}x{nv}) gradients against autograd of the fp32 product: da max abs "
+        f"{(ga.float() - ra.float()).abs().max().item():.3e}, dw {(gw.float() - rw.float()).abs().max().item():.3e} "
+        f"(rtol {MATMUL_GRAD_TOL['rtol']:g}) {'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise AssertionError("matmul_f32's gradients disagree with autograd of the fp32 product")
+    del a, w, g, out, ga, gw, a2, w2, ra, rw
+
+    q = torch.randn((1, 64, 2, 64), device="cuda", dtype=bf16).requires_grad_()
+    try:
+        ops.flash_attention(q, q, q)
+    except RuntimeError as e:
+        log(f"kernel flash_attention refuses autograd: {e}")
+    else:
+        raise AssertionError("flash_attention ran under autograd")
+    with torch.no_grad():
+        ops.flash_attention(q, q, q)  # and still runs without grad
+    torch.cuda.empty_cache()
+    return {"mamba2-780m": train_err}
 
 
 def to_device(tree, dev):
@@ -1111,9 +1316,9 @@ def serve_slice(arch: str) -> tuple[dict, dict]:
             prof = device_ms(fn, calls=1, warmup=1)
             busy_ms, n_kernels, top = prof["ms"], prof["kernels"], prof["top"]
             breakdown[name] = {"wall_ms": wall_ms, "device_busy_ms": busy_ms,
-                               "idle_share": 1.0 - busy_ms / wall_ms, "kernels": round(n_kernels)}
-            log(f"profile {arch} {name}: {wall_ms:.3f} ms, device busy {busy_ms:.3f} ms, "
-                f"idle share {1.0 - busy_ms / wall_ms:.3f}, {n_kernels:g} kernels; top: "
+                               "idle_share": idle_share(busy_ms, wall_ms), "kernels": round(n_kernels)}
+            log(f"profile {arch} {name}: {wall_ms:.3f} ms, device busy {fmt(busy_ms, '.3f')} ms, "
+                f"idle share {fmt(idle_share(busy_ms, wall_ms), '.3f')}, {n_kernels:g} kernels; top: "
                 + "; ".join(f"{k[:48]} {ms:.3f} ms" for k, ms in top[:6]))
         if cfg.family == "moe":
             decode_routes: list = []
@@ -1259,10 +1464,10 @@ def decode_graph(cfg, params, cache, step_tok, gen_tokens, prompts, extras, prom
     prof_e = device_ms(lambda: serve_step_in_place(cfg, params, eager_state, tok_buf), calls=1, warmup=1)
     profiles = {}
     for name, prof, wall in (("graph", prof_g, min(graph_ms)), ("eager", prof_e, min(eager_list))):
-        profiles[name] = {"wall_ms": wall, "device_busy_ms": prof["ms"], "idle_share": 1.0 - prof["ms"] / wall,
+        profiles[name] = {"wall_ms": wall, "device_busy_ms": prof["ms"], "idle_share": idle_share(prof["ms"], wall),
                           "kernels": prof["kernels"], "sessions_kernels": prof["sessions_kernels"]}
-        log(f"profile {cfg.name} decode step ({name}): {wall:.3f} ms, device busy {prof['ms']:.3f} ms, "
-            f"idle share {1.0 - prof['ms'] / wall:.3f}, {prof['kernels']:g} kernels (sessions "
+        log(f"profile {cfg.name} decode step ({name}): {wall:.3f} ms, device busy {fmt(prof['ms'], '.3f')} ms, "
+            f"idle share {fmt(idle_share(prof['ms'], wall), '.3f')}, {prof['kernels']:g} kernels (sessions "
             f"{prof['sessions_kernels']}); top: " + "; ".join(f"{k[:40]} {ms:.3f}" for k, ms in prof["top"][:5]))
     kernels_match = prof_g["kernels"] == prof_e["kernels"]
     log(f"{cfg.name} decode ms per step by CUDA events, in turns: eager {', '.join(f'{x:.3f}' for x in eager_list)}; "
@@ -1354,7 +1559,7 @@ def time_moe(cfg, p: dict) -> dict:
                       "experts_bound_ms": bounds["experts"][0], "experts_bound_by": bounds["experts"][1],
                       "block_bound_ms": bounds["block"][0], "block_bound_by": bounds["block"][1]}
         log(f"moe_block {shape} T={tokens} C={cap}, device ms per call (CUDA-event ms; kernels a call): "
-            + ", ".join(f"{name} {t['ms']:.4f} ({t['event_ms']:.4f}; {t['kernels']:g})" for name, t in parts.items())
+            + ", ".join(f"{name} {fmt(t['ms'])} ({t['event_ms']:.4f}; {t['kernels']:g})" for name, t in parts.items())
             + f"; bounds: experts {bounds['experts'][0]:.4f} ({bounds['experts'][1]}), block "
             f"{bounds['block'][0]:.4f} ({bounds['block'][1]})")
         log(f"moe_block {shape} top kernels: " + "; ".join(
@@ -1389,11 +1594,11 @@ def time_flash(arch: str) -> dict:
     bound_ms, bound_by = flash_bound_ms(q, k, causal=True)
     log(f"flash_attention q{tuple(q.shape)} kv{tuple(k.shape)} bf16 causal, ms per call by CUDA-graph "
         f"replay (torch.profiler; kernels a call it recorded; CUDA events): kernel {kernel['graph_ms']:.4f} / "
-        f"{kernel2['graph_ms']:.4f} ({kernel['ms']:.4f} / {kernel2['ms']:.4f}; {kernel['kernels']:g}; "
+        f"{kernel2['graph_ms']:.4f} ({fmt(kernel['ms'])} / {fmt(kernel2['ms'])}; {kernel['kernels']:g}; "
         f"{kernel['event_ms']:.4f} / {kernel2['event_ms']:.4f}), sdpa {library['graph_ms']:.4f} / "
-        f"{library2['graph_ms']:.4f} ({library['ms']:.4f} / {library2['ms']:.4f}; {library['kernels']:g}; "
+        f"{library2['graph_ms']:.4f} ({fmt(library['ms'])} / {fmt(library2['ms'])}; {library['kernels']:g}; "
         f"{library['event_ms']:.4f} / {library2['event_ms']:.4f}; max abs vs plain {sdpa_err:.2e}), plain "
-        f"{plain['graph_ms']:.4f} ({plain['ms']:.4f}; {plain['kernels']:g}; {plain['event_ms']:.4f}), "
+        f"{plain['graph_ms']:.4f} ({fmt(plain['ms'])}; {plain['kernels']:g}; {plain['event_ms']:.4f}), "
         f"bound {bound_ms:.5f} ms ({bound_by})")
     log(f"flash_attention kernels: {[k for k, _ in kernel['top']]}; sdpa kernels: {[k for k, _ in library['top']]}")
     log("device ms per call in each profiler session: " + "; ".join(
@@ -1433,8 +1638,8 @@ def time_ssd(arch: str) -> dict:
 
     log(f"ssd_scan [{arch}] x{tuple(x.shape)} n={n} bf16, state0 given, ms per call by CUDA-graph replay "
         f"(torch.profiler; kernels a call it recorded, of 3; CUDA events): kernel {kernel['graph_ms']:.4f} "
-        f"({kernel['ms']:.4f}; {kernel['kernels']:g}; {kernel['event_ms']:.4f}) at chunk {chunk}, plain "
-        f"{plain['graph_ms']:.4f} ({plain['ms']:.4f}; {plain['event_ms']:.4f}), bound {bound_ms:.4f} ms "
+        f"({fmt(kernel['ms'])}; {kernel['kernels']:g}; {kernel['event_ms']:.4f}) at chunk {chunk}, plain "
+        f"{plain['graph_ms']:.4f} ({fmt(plain['ms'])}; {plain['event_ms']:.4f}), bound {bound_ms:.4f} ms "
         f"({bound_by}), bound share {bound_ms / kernel['graph_ms']:.3f}, library: none")
     log(f"ssd_scan [{arch}] device ms per call by kernel, x{tuple(x.shape)} chunk {chunk}: {split(kernel)}")
     out = {"x": list(x.shape), "n": n, "ms": kernel["graph_ms"], "profiler_ms": kernel["ms"],
@@ -1448,9 +1653,9 @@ def time_ssd(arch: str) -> dict:
     long = timed(lambda: ops.ssd_scan(xl, lal, bml, cml, chunk=chunk, state0=s0l), graph=True)
     long_bound_ms, long_bound_by = ssd_bound_ms(xl, lal, bml, s0l, chunk)
     log(f"ssd_scan x{tuple(x.shape)} chunk 64: kernel {kernel64['graph_ms']:.4f} by graph replay "
-        f"({kernel64['ms']:.4f} profiler; {kernel64['event_ms']:.4f} events)")
+        f"({fmt(kernel64['ms'])} profiler; {kernel64['event_ms']:.4f} events)")
     log(f"ssd_scan x{tuple(xl.shape)} n={n} bf16, state0 given, chunk {chunk}: kernel {long['graph_ms']:.4f} "
-        f"ms per call by graph replay ({long['ms']:.4f} profiler, {long['kernels']:g} kernels a call; "
+        f"ms per call by graph replay ({fmt(long['ms'])} profiler, {long['kernels']:g} kernels a call; "
         f"{long['event_ms']:.4f} events), bound {long_bound_ms:.4f} ms ({long_bound_by}), bound share "
         f"{long_bound_ms / long['graph_ms']:.3f}")
     log("ssd_scan device ms per call (kernels a call) in each profiler session: " + "; ".join(
@@ -1459,6 +1664,76 @@ def time_ssd(arch: str) -> dict:
     log(f"ssd_scan device ms per call by kernel, x{tuple(x.shape)} chunk 64: {split(kernel64)}")
     log(f"ssd_scan device ms per call by kernel, x{tuple(xl.shape)} chunk {chunk}: {split(long)}")
     return {**out, "chunk64_ms": kernel64["graph_ms"], "long_ms": long["graph_ms"], "long_bound_ms": long_bound_ms}
+
+
+def ssd_bwd_bound_ms(x, log_da, bmat, state0, dstate, chunk: int) -> tuple[float, str]:
+    """Least time for the card for the scan's gradient: x, log_da, B, C, dy (and
+    state0, d(final state)) read and dx, dlog_da, dB, dC (and dstate0) written
+    once, against the products it needs.
+
+    FLOPs per (batch row, chunk of q steps): C B^T over the lower triangle
+    (q(q+1)/2 pairs, 2N); per head: dY X^T, M^T dY, E^T C and E B over the
+    triangle (4P + 4N a pair) and five (q, P) x (P, N)-sized state products
+    (the chunk's local state, its local dS, and the inter-chunk terms of dx,
+    dB and dC: 10 qNP).
+    """
+    b, s, h, p = x.shape
+    n = bmat.shape[-1]
+    state_bytes = b * h * p * n * 4
+    nbytes = (3 * x.numel() * x.element_size() + 2 * log_da.numel() * 4
+              + 4 * bmat.numel() * bmat.element_size()
+              + state_bytes * (2 * (state0 is not None) + (dstate is not None)))
+    flops = 0.0
+    for c0 in range(0, s, chunk):
+        q = min(chunk, s - c0)
+        tri = q * (q + 1) / 2
+        flops += b * tri * 2 * n + b * h * (tri * (4 * p + 4 * n) + 10 * q * n * p)
+    return _bound(nbytes, flops, x.dtype)
+
+
+def time_ssd_train() -> dict:
+    """The scan's forward and backward kernels at mamba2-780m's training shape
+    (x (2, 4096, 48, 64) bf16, N 128, no initial state, d(final state) zero,
+    as the training step calls them), beside their plain versions and bounds."""
+    import torch
+
+    from repro_torch.kernels import ops, ref
+
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 6)
+    x, la, bm, cm, _ = ssd_inputs(gen, TRAIN_BATCH, TRAIN_SEQ, 48, 64, 128, torch.bfloat16, state=False)
+    dy = torch.randn(x.shape, generator=gen, device="cuda").to(torch.bfloat16)
+    zero = torch.zeros((TRAIN_BATCH, 48, 64, 128), device="cuda")
+    def fwd():
+        return ops.ssd_scan(x, la, bm, cm)
+
+    def bwd():
+        return ops.ssd_scan_bwd(x, la, bm, cm, dy, None)
+
+    # kernel, kernel again; CUDA-graph replay, then CUDA events around back-to-back calls
+    fwd_ms, bwd_ms, bwd2_ms = graph_ms(fwd, calls=10), graph_ms(bwd, calls=10), graph_ms(bwd, calls=10)
+    fwd_ev, bwd_ev = cuda_time_ms(fwd, reps=10), cuda_time_ms(bwd, reps=10)
+    plain_fwd = cuda_time_ms(lambda: ref.ssd_scan_ref(x, la, bm, cm), reps=3, warmup=1)
+    plain_bwd = cuda_time_ms(lambda: ref.ssd_scan_bwd_ref(x, la, bm, cm, dy, zero), reps=3, warmup=1)
+    fwd_bound, fwd_by = ssd_bound_ms(x, la, bm, None, 128)
+    bwd_bound, bwd_by = ssd_bwd_bound_ms(x, la, bm, None, None, 128)
+    # the backward's split among its four kernels, from torch.profiler; [] when it recorded none
+    split = device_ms(bwd, calls=5, warmup=1, sessions=1)["top"]
+    log(f"ssd_scan x{tuple(x.shape)} n=128 bf16 (training shape), ms per call by CUDA-graph replay "
+        f"(CUDA events): forward {fwd_ms:.4f} ({fwd_ev:.4f}), plain {plain_fwd:.4f} (events), bound "
+        f"{fwd_bound:.4f} ({fwd_by}); backward {bwd_ms:.4f} / {bwd2_ms:.4f} ({bwd_ev:.4f}), plain "
+        f"{plain_bwd:.4f} (events), bound {bwd_bound:.4f} ({bwd_by}), bound share {bwd_bound / bwd_ms:.4f}, "
+        f"library: none")
+    log("ssd_scan_bwd device ms per call by kernel: "
+        + ("; ".join(f"{k[:60]} {ms:.4f}" for k, ms in split) or "not measured"))
+    none = {"library_ms": None, "library_profiler_ms": None, "library_event_ms": None,
+            "profiler_ms": None, "plain_profiler_ms": None}
+    return {
+        "ssd_scan": {"x": list(x.shape), "n": 128, "ms": fwd_ms, "event_ms": fwd_ev, "plain_ms": plain_fwd,
+                     "plain_event_ms": plain_fwd, "bound_ms": fwd_bound, "bound_by": fwd_by, **none},
+        "ssd_scan_bwd": {"x": list(x.shape), "n": 128, "ms": bwd_ms, "ms_again": bwd2_ms, "event_ms": bwd_ev,
+                         "plain_ms": plain_bwd, "plain_event_ms": plain_bwd, "bound_ms": bwd_bound,
+                         "bound_by": bwd_by, "split": split or None, **none},
+    }
 
 
 def estimate_on_card(smi: str) -> dict:
@@ -2057,6 +2332,262 @@ def service_on_card(smi: str, hub_dir: Path) -> dict:
     return result
 
 
+class InjectedFailure(RuntimeError):
+    """The crash that phase 8 injects into a training run."""
+
+
+def train_batch_on(cfg, seq: int, batch: int, step: int, dev) -> dict:
+    """``SyntheticLMData``'s batch for ``step`` (seed ``SEED``) on ``dev``, as the trainer feeds it."""
+    import torch
+
+    from repro_torch.data.pipeline import SyntheticLMData
+    from repro_torch.models.config import InputShape
+
+    data = SyntheticLMData(cfg, InputShape("train", seq, batch, "train"), seed=SEED).batch(step)
+    return {k: torch.as_tensor(v, device=dev).long() if v.dtype.kind == "i" else torch.as_tensor(v, device=dev)
+            for k, v in data.items()}
+
+
+def rel_l2(got, want) -> float:
+    got, want = got.detach().float().cpu(), want.detach().float().cpu()
+    return ((got - want).norm() / want.norm().clamp_min(1e-30)).item()
+
+
+def kernel_counts() -> dict:
+    from repro_torch.kernels import ops
+
+    return {name: getattr(ops, name).launches for name in TRAIN_KERNELS}
+
+
+def zero_kernel_counts() -> None:
+    from repro_torch.kernels import ops
+
+    for name in TRAIN_KERNELS:
+        getattr(ops, name).launches = 0
+
+
+def check_train_reduced(arch: str) -> dict:
+    """Phase 8a: one train step of the reduced config (remat "full", batch 2,
+    seq 200: a chunk boundary with a ragged tail) on the card against the same
+    step on the CPU: loss, grad norm and every gradient leaf within
+    ``TRAIN_REL_L2``; the card's scan launches as the layers dictate."""
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.models import transformer as T
+    from repro_torch.models.config import reduced
+    from repro_torch.optim.adamw import AdamWConfig, adamw_init, tree_leaves
+    from repro_torch.train.steps import make_train_step, value_and_grad
+
+    cfg = dataclasses.replace(reduced(get_config(arch)), remat="full")  # the full configs' remat
+    params_cpu = T.init_params(cfg, torch.Generator().manual_seed(SEED), "cpu", param_dtype=torch.float32)
+    opt_cfg = AdamWConfig(lr=1e-3, warmup_steps=0, total_steps=TRAIN_STEPS)
+    runs = {}
+    for dev in ("cpu", "cuda"):
+        params = to_device(params_cpu, dev)
+        batch = train_batch_on(cfg, 200, 2, 0, dev)
+        zero_kernel_counts()
+        loss, _, grads = value_and_grad(cfg, params, batch)
+        counts = kernel_counts()
+        _, _, metrics = make_train_step(cfg, opt_cfg)(params, adamw_init(params), batch)
+        runs[dev] = (float(loss), float(metrics["grad_norm"]), tree_leaves(grads), counts)
+    (loss_c, norm_c, g_c, _), (loss_g, norm_g, g_g, counts) = runs["cpu"], runs["cuda"]
+    leaf_errs = [rel_l2(a, b) for a, b in zip(g_g, g_c)]
+    n_layers = cfg.n_layers if cfg.family == "ssm" else 0
+    want = {"ssd_scan": 2 * n_layers, "ssd_scan_bwd": n_layers, "flash_attention": 0}
+    ok = (abs(loss_g - loss_c) <= TRAIN_REL_L2 * abs(loss_c) and abs(norm_g - norm_c) <= TRAIN_REL_L2 * norm_c
+          and max(leaf_errs) <= TRAIN_REL_L2 and counts == want
+          and all(torch.isfinite(g).all() for g in g_g))
+    log(f"train reduced {arch} (remat full, batch 2, seq 200), card vs CPU: loss {loss_g:.6f} / {loss_c:.6f}, "
+        f"grad norm {norm_g:.6f} / {norm_c:.6f}, {len(leaf_errs)} gradient leaves, largest rel L2 "
+        f"{max(leaf_errs):.3e} (bar {TRAIN_REL_L2:g}); launches {counts} (want {want}) {'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise AssertionError(f"reduced {arch}'s train step on the card disagrees with the CPU")
+    return {"loss": [loss_g, loss_c], "grad_norm": [norm_g, norm_c], "max_leaf_rel_l2": max(leaf_errs),
+            "leaves": len(leaf_errs), "launches": counts}
+
+
+def profile_train_step(step_fn, wall_ms: float) -> dict:
+    """Device-busy ms of one train step (torch.profiler: two sessions, each
+    tracing a warm-up step and then the step; the one that recorded more
+    kernels is kept) and its idle share against the unprofiled step ms."""
+    prof = device_ms(step_fn, calls=1, warmup=0, sessions=2)
+    return {"device_busy_ms": prof["ms"], "idle_share": idle_share(prof["ms"], wall_ms), "kernels": round(prof["kernels"]),
+            "sessions_ms": prof["sessions_ms"], "top": [(k[:60], ms) for k, ms in prof["top"][:8]]}
+
+
+def train_line(arch: str, smi: str, step_ms: list, tokens: int, peak_bytes: int, losses: list,
+               counts: dict, steps: int, profile: dict, **extra) -> dict:
+    after_first = step_ms[1:] or step_ms
+    med = statistics.median(after_first)
+    line = {"arch": arch, "card": smi, "batch": TRAIN_BATCH, "seq": TRAIN_SEQ, "steps": steps,
+            "step_ms": step_ms, "step_ms_median_after_first": med, "tokens_per_s": tokens / (med / 1e3),
+            "peak_memory_gib": peak_bytes / 2**30, "losses": losses,
+            "launches_per_step": {k: v / steps for k, v in counts.items()}, "profile": profile, **extra}
+    log(f"train {arch} at full width and depth, batch {TRAIN_BATCH} x seq {TRAIN_SEQ} on {smi}: step "
+        f"{med:.1f} ms (median of steps 2-{len(step_ms)}; CUDA events), {line['tokens_per_s']:.0f} tokens/s, "
+        f"peak {line['peak_memory_gib']:.2f} GiB, one step's device busy {fmt(profile['device_busy_ms'], '.1f')} ms "
+        f"(idle share {fmt(profile['idle_share'], '.3f')}, {profile['kernels']} kernels), launches per step "
+        f"{line['launches_per_step']}, losses {[round(x, 4) for x in losses]}")
+    log("  top kernels of one step: " + "; ".join(f"{k} {ms:.1f} ms" for k, ms in profile["top"]))
+    return line
+
+
+def _event_hook(events: list, fail_at: int | None = None):
+    import torch
+
+    def hook(step: int) -> None:
+        ev = torch.cuda.Event(enable_timing=True)
+        ev.record()
+        events.append(ev)
+        if step == fail_at:
+            raise InjectedFailure(f"injected failure at step {step}")
+
+    return hook
+
+
+def _step_ms(events: list) -> list:
+    import torch
+
+    torch.cuda.synchronize()
+    return [a.elapsed_time(b) for a, b in zip(events, events[1:])]
+
+
+def train_mamba2(smi: str) -> dict:
+    """Phase 8b: mamba2-780m at full width and depth through the ``Trainer`` of
+    ``repro_torch.launch.train``: random fp32 masters from a seeded generator,
+    batch 2 x 4,096 (``train_4k``'s sequence, 32 scan chunks a row),
+    ``AdamWConfig(lr=1e-3, warmup_steps=0, total_steps=8)``.  A run that
+    checkpoints every 2 steps fails at step 5 and resumes from step 4; an
+    uninterrupted run beside it is timed and counted.  Losses finite and
+    falling, 96 forward and 48 backward scan launches per step, the resumed
+    losses and final parameters equal to the uninterrupted run's."""
+    import shutil
+    import tempfile
+
+    import torch
+
+    from repro_torch.checkpoint import CheckpointManager
+    from repro_torch.configs import get_config
+    from repro_torch.models.config import InputShape
+    from repro_torch.optim.adamw import AdamWConfig, tree_leaves
+    from repro_torch.train.steps import make_train_step
+    from repro_torch.train.trainer import Trainer, TrainerConfig
+
+    cfg = get_config("mamba2-780m")
+    shape = InputShape("train_4k", TRAIN_SEQ, TRAIN_BATCH, "train")
+    opt_cfg = AdamWConfig(lr=1e-3, warmup_steps=0, total_steps=TRAIN_STEPS)
+    work = ROOT / "build"
+    work.mkdir(exist_ok=True)
+    with tempfile.TemporaryDirectory(dir=work) as tmp:
+        log(f"train mamba2-780m: checkpoints under {tmp}; disk free {shutil.disk_usage(tmp).free / 2**30:.1f} GiB")
+        resume_dir = str(Path(tmp) / "resume")
+
+        def trainer(directory, every, hook):
+            tcfg = TrainerConfig(steps=TRAIN_STEPS, checkpoint_every=every, checkpoint_dir=directory, keep=1,
+                                 seed=SEED, log_every=TRAIN_STEPS)
+            return Trainer(cfg, shape, None, tcfg, opt_cfg, failure_hook=hook, device="cuda")
+
+        t0 = time.perf_counter()
+        first = trainer(resume_dir, TRAIN_CKPT_EVERY, _event_hook([], TRAIN_FAIL_AT))
+        try:
+            first.run()
+        except InjectedFailure as e:
+            log(f"train mamba2-780m: {e} after {len(first.history)} steps")
+        else:
+            raise AssertionError("the injected failure did not stop the run")
+        latest = CheckpointManager(resume_dir).latest_step()
+        if latest != TRAIN_FAIL_AT - TRAIN_FAIL_AT % TRAIN_CKPT_EVERY:
+            raise AssertionError(f"latest checkpoint {latest} after a failure at step {TRAIN_FAIL_AT}")
+        interrupted_s = time.perf_counter() - t0
+        first_losses = [h["loss"] for h in first.history]
+        del first
+        torch.cuda.empty_cache()
+        t0 = time.perf_counter()
+        resumed = trainer(resume_dir, TRAIN_CKPT_EVERY, _event_hook([]))
+        resumed.run()
+        resumed_s = time.perf_counter() - t0
+        resumed_params, resumed_history = resumed.params, resumed.history
+        del resumed
+        torch.cuda.empty_cache()
+
+        events: list = []
+        straight = trainer(str(Path(tmp) / "straight"), TRAIN_STEPS, _event_hook(events))
+        torch.cuda.reset_peak_memory_stats()
+        zero_kernel_counts()
+        t0 = time.perf_counter()
+        straight.run()
+        straight_s = time.perf_counter() - t0
+        counts = kernel_counts()
+        peak = torch.cuda.max_memory_allocated()
+        step_ms = _step_ms(events)
+    losses = [h["loss"] for h in straight.history]
+    resumed_losses = [h["loss"] for h in resumed_history]
+    loss_gap = max(abs(a - b) for a, b in zip(first_losses + resumed_losses, losses[:len(first_losses)] + losses[latest:]))
+    param_gap = max((a - b).abs().max().item() for a, b in zip(tree_leaves(resumed_params),
+                                                               tree_leaves(straight.params)))
+    del resumed_params
+    want = {"ssd_scan": 2 * cfg.n_layers * TRAIN_STEPS, "ssd_scan_bwd": cfg.n_layers * TRAIN_STEPS,
+            "flash_attention": 0}
+    step_fn = make_train_step(cfg, opt_cfg)
+    batch = train_batch_on(cfg, TRAIN_SEQ, TRAIN_BATCH, TRAIN_STEPS, "cuda")
+    profile = profile_train_step(lambda: step_fn(straight.params, straight.opt_state, batch),
+                                 statistics.median(step_ms[1:]))
+    ok = (all(math.isfinite(x) for x in losses) and losses[-1] < losses[0] and counts == want
+          and loss_gap <= RESUME_TOL and param_gap <= RESUME_TOL and [h["step"] for h in resumed_history]
+          == list(range(latest, TRAIN_STEPS)))
+    log(f"train mamba2-780m resume: failed at step {TRAIN_FAIL_AT}, resumed from checkpoint {latest}; resumed "
+        f"losses {[round(x, 6) for x in resumed_losses]} against the uninterrupted run's "
+        f"{[round(x, 6) for x in losses[latest:]]}: max abs {loss_gap:.3e} (the interrupted run's steps "
+        f"0-{len(first_losses) - 1} included); final parameters max abs "
+        f"{param_gap:.3e} (bar {RESUME_TOL:g}); launches {counts} (want {want}) {'ok' if ok else 'FAIL'}")
+    line = train_line("mamba2-780m", smi, step_ms, TRAIN_BATCH * TRAIN_SEQ, peak, losses, counts, TRAIN_STEPS,
+                      profile, resume={"failed_at": TRAIN_FAIL_AT, "restored_step": latest,
+                                       "loss_max_abs": loss_gap, "param_max_abs": param_gap},
+                      run_seconds={"interrupted": interrupted_s, "resumed": resumed_s, "uninterrupted": straight_s},
+                      step_time_s=[h["step_time_s"] for h in straight.history])
+    if not ok:
+        raise AssertionError("mamba2-780m's training run failed its checks")
+    return line
+
+
+def train_qwen2(smi: str) -> dict:
+    """Phase 8c: qwen2-1.5b at full width and depth, ``QWEN_TRAIN_STEPS`` steps of
+    ``make_train_step`` at batch 2 x 4,096 from fp32 masters; the chunked
+    attention route, as the config has it: no kernel of the port launches."""
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.models import transformer as T
+    from repro_torch.optim.adamw import AdamWConfig, adamw_init
+    from repro_torch.train.steps import make_train_step
+
+    cfg = get_config("qwen2-1.5b")
+    params = T.init_params(cfg, torch.Generator(device="cuda").manual_seed(SEED), "cuda", param_dtype=torch.float32)
+    opt_state = adamw_init(params)
+    step_fn = make_train_step(cfg, AdamWConfig(lr=1e-3, warmup_steps=0, total_steps=QWEN_TRAIN_STEPS))
+    events, losses = [], []
+    hook = _event_hook(events)
+    torch.cuda.reset_peak_memory_stats()
+    zero_kernel_counts()
+    for step in range(QWEN_TRAIN_STEPS):
+        batch = train_batch_on(cfg, TRAIN_SEQ, TRAIN_BATCH, step, "cuda")
+        hook(step)
+        params, opt_state, metrics = step_fn(params, opt_state, batch)
+        losses.append(float(metrics["loss"]))
+    hook(QWEN_TRAIN_STEPS)
+    counts = kernel_counts()
+    peak = torch.cuda.max_memory_allocated()
+    step_ms = _step_ms(events)
+    profile = profile_train_step(lambda: step_fn(params, opt_state, batch), statistics.median(step_ms[1:]))
+    ok = all(math.isfinite(x) for x in losses) and not any(counts.values())
+    line = train_line("qwen2-1.5b", smi, step_ms, TRAIN_BATCH * TRAIN_SEQ, peak, losses, counts,
+                      QWEN_TRAIN_STEPS, profile)
+    if not ok:
+        raise AssertionError(f"qwen2-1.5b's training: losses {losses}, kernel launches {counts}")
+    return line
+
+
 def run_lint() -> dict:
     """``python -m repro_torch.analysis src/repro_torch``: every rule of the
     port's linter over the port; fails unless it reports 0 unsuppressed findings."""
@@ -2108,9 +2639,9 @@ def main() -> int:
 
     # ---- 2. build, one nvcc per source, all at once
     t0 = time.perf_counter()
-    with ThreadPoolExecutor(len(KERNELS)) as pool:
-        built = dict(zip(KERNELS, pool.map(build.build, KERNELS)))
-    log(f"build: {len(KERNELS)} kernels in {time.perf_counter() - t0:.1f} s")
+    with ThreadPoolExecutor(len(TRAIN_KERNELS)) as pool:
+        built = dict(zip(TRAIN_KERNELS, pool.map(build.build, TRAIN_KERNELS)))
+    log(f"build: {len(TRAIN_KERNELS)} sources in {time.perf_counter() - t0:.1f} s")
     for name, (lib, report, nvcc_s) in built.items():
         log(f"  {lib.name}: nvcc {nvcc_s:.1f} s")
         for line in report.splitlines():
@@ -2122,6 +2653,10 @@ def main() -> int:
 
     # ---- 3. kernels against their plain versions
     checks = {"flash_attention": check_flash(), "ssd_scan": check_ssd()}
+    # ---- 3b. the scan's backward kernel, matmul_f32's gradient, flash's refusal of autograd
+    t0 = time.perf_counter()
+    checks["ssd_scan_bwd"] = check_ssd_bwd()
+    log(f"phase 3b: {time.perf_counter() - t0:.1f} s")
 
     # ---- 4 and 5. the slices, and each kernel at each of its slices' shapes
     slices, launches = [], {name: {} for name in KERNELS}
@@ -2139,6 +2674,7 @@ def main() -> int:
     for name in KERNELS:
         for arch in launches[name]:
             timings[name][arch] = time_flash(arch) if name == "flash_attention" else time_ssd(arch)
+    train_timing = time_ssd_train()  # the scan's two kernels at the training shape of phase 8
 
     # ---- 6. the estimation pipeline, the card as its black-box platform
     from repro_torch.kernels import ops
@@ -2167,6 +2703,25 @@ def main() -> int:
     estimation["runtime"]["phase_seconds"] = time.perf_counter() - t0
     log(f"phase 6c: {estimation['runtime']['phase_seconds']:.1f} s; kernel launches {launched}")
 
+    # ---- 8. training: reduced on the card against the CPU, then mamba2-780m and qwen2-1.5b at full size
+    train = {"reduced": {}}
+    t0 = time.perf_counter()
+    for arch in ("mamba2-780m", "qwen2-1.5b"):
+        train["reduced"][arch] = check_train_reduced(arch)
+    train["reduced"]["phase_seconds"] = time.perf_counter() - t0
+    train_lines = []
+    for run in (train_mamba2, train_qwen2):
+        torch.cuda.empty_cache()
+        t0 = time.perf_counter()
+        line = run(smi)
+        line["phase_seconds"] = time.perf_counter() - t0
+        log(f"train {line['arch']}: {line['phase_seconds']:.1f} s")
+        train_lines.append(line)
+    mamba_train = train_lines[0]
+    train_launches = {name: round(n * mamba_train["steps"]) for name, n in mamba_train["launches_per_step"].items()}
+    launches["ssd_scan"]["train mamba2-780m"] = train_launches["ssd_scan"]
+    timings["ssd_scan"]["train mamba2-780m"] = train_timing["ssd_scan"]
+
     # ---- 7. result lines
     sources = {
         "flash_attention": ("src/repro_torch/kernels/csrc/flash_attention.cu",
@@ -2178,7 +2733,8 @@ def main() -> int:
                 "ms_over_library_ms": t["ms"] / t["library_ms"] if t["library_ms"] else None}
 
     # The top-level numbers are those at the kernel's first slice's shape (the
-    # shape earlier runs timed); "by_slice" holds every slice's, launches included.
+    # shape earlier runs timed); "by_slice" holds every slice's, launches included
+    # (the training step's as "train mamba2-780m").
     kernels = []
     for name in KERNELS:
         by_slice = {arch: {"launches": launches[name][arch], **per_shape(t, checks[name][arch])}
@@ -2193,10 +2749,23 @@ def main() -> int:
                                      "library_profiler_ms", "bound_share", "ms_over_library_ms")},
             "by_slice": by_slice,
         })
+    bwd = per_shape(train_timing["ssd_scan_bwd"], checks["ssd_scan_bwd"]["mamba2-780m"])
+    kernels.append({
+        "name": "ssd_scan_bwd", "route": "cuda", "source": "src/repro_torch/kernels/csrc/ssd_scan_bwd.cu",
+        "replaces": "jax.grad of src/repro/models/ssm.py::ssd_chunked (:49)",
+        "launches": train_launches["ssd_scan_bwd"],
+        "launches_by_slice": {"train mamba2-780m": train_launches["ssd_scan_bwd"]},
+        "max_abs_err": bwd["max_abs_err"],
+        **{k: bwd[k] for k in ("ms", "ms_again", "plain_ms", "bound_ms", "bound_by", "library_ms", "event_ms",
+                               "plain_event_ms", "profiler_ms", "bound_share", "x", "n", "split")},
+    })
     log(f"chip_smoke: {time.perf_counter() - t_start:.1f} s in all")
     log(json.dumps({"lint": lint}))
     for line in slices:
         log(json.dumps({"slice": {**line, "card": smi}}))
+    for line in train_lines:
+        log(json.dumps({"train": line}))
+    log(json.dumps({"train_reduced": train["reduced"]}))
     log(json.dumps({"kernels": kernels}))
     log(json.dumps({"estimation": estimation}))
     log(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind, "count": count}}))

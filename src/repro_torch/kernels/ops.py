@@ -22,7 +22,7 @@ import ctypes
 import torch
 
 from repro_torch.kernels import build
-from repro_torch.kernels.ref import flash_attention_ref, ssd_scan_ref
+from repro_torch.kernels.ref import flash_attention_ref, ssd_scan_bwd_ref, ssd_scan_ref
 
 _FLASH_DTYPES = (torch.float32, torch.bfloat16)
 _SSD_DTYPES = (torch.float32, torch.bfloat16)
@@ -73,6 +73,12 @@ def flash_attention(
         return flash_attention_ref(q, k, v, causal=causal, q_offset=q_offset)
     if q.device.type != "cuda":
         raise ValueError(f"flash_attention runs on cpu or cuda, not {q.device}")
+    if torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v)):
+        raise RuntimeError(
+            "flash_attention has no gradient: neither the JAX reference nor the port differentiates "
+            "the flash route (attention_impl='flash_pallas'); training uses attention_impl="
+            "'xla_chunked', the configs' default"
+        )
     if not (q.dtype == k.dtype == v.dtype) or q.dtype not in _FLASH_DTYPES:
         raise TypeError(f"flash_attention takes fp32 or bf16 q/k/v of one dtype, got {q.dtype}/{k.dtype}/{v.dtype}")
     if d > 128 or d % 8:
@@ -111,25 +117,20 @@ def _ssd_lib() -> ctypes.CDLL:
     return lib
 
 
-def ssd_scan(
-    xbar: torch.Tensor,
-    log_da: torch.Tensor,
-    bmat: torch.Tensor,
-    cmat: torch.Tensor,
-    *,
-    chunk: int = 128,
-    state0: torch.Tensor | None = None,
-) -> tuple[torch.Tensor, torch.Tensor]:
-    """Chunked Mamba2 SSD scan: (y (B,S,H,P) in xbar's dtype, final state (B,H,P,N) fp32).
+def _ssd_bwd_lib() -> ctypes.CDLL:
+    lib = build.load("ssd_scan_bwd")
+    fn = lib.repro_ssd_scan_bwd
+    fn.argtypes = [ctypes.c_void_p] * 13 + [ctypes.c_int] * 7 + [ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    size = lib.repro_ssd_scan_bwd_scratch_bytes
+    size.argtypes = [ctypes.c_int] * 6
+    size.restype = ctypes.c_size_t
+    return lib
 
-    xbar (B,S,H,P), log_da (B,S,H) fp32, bmat/cmat (B,S,N) of xbar's dtype
-    (fp32 or bf16), optional fp32 ``state0`` (B,H,P,N); see
-    ``ref.ssd_scan_ref``.  On the card P and N are multiples of 8 up to 128
-    and ``chunk`` is 64 or 128.  bf16 runs Mamba2's chunk-parallel split on
-    the tensor cores (three kernels; B * decay and the chunks' incoming
-    states rounded to bf16, the intra-chunk weights as a bf16 pair hi + lo;
-    ``csrc/ssd_scan.cu``); fp32 runs the CUDA-core kernels in true fp32.
-    """
+
+def _check_ssd(xbar, log_da, bmat, cmat, chunk, state0, *grads) -> tuple[int, int, int, int, int]:
+    """Shapes, dtypes and devices of a scan's inputs (and, for its gradient,
+    of dy and d(final state)); returns (B, S, H, P, N)."""
     if xbar.ndim != 4 or log_da.ndim != 3 or bmat.ndim != 3 or cmat.ndim != 3:
         raise ValueError(
             f"expected xbar (B,S,H,P), log_da (B,S,H), bmat/cmat (B,S,N), got {tuple(xbar.shape)}, "
@@ -151,24 +152,67 @@ def ssd_scan(
     if log_da.dtype != torch.float32 or (state0 is not None and state0.dtype != torch.float32):
         raise TypeError(f"ssd_scan takes fp32 log_da and state0, got {log_da.dtype}/"
                         f"{None if state0 is None else state0.dtype}")
+    if grads:
+        dy, dstate = grads
+        if tuple(dy.shape) != (b, s, h, p) or dy.dtype != xbar.dtype:
+            raise ValueError(f"dy {tuple(dy.shape)} {dy.dtype} is not xbar's {(b, s, h, p)} {xbar.dtype}")
+        if dstate is not None and (tuple(dstate.shape) != (b, h, p, n) or dstate.dtype != torch.float32):
+            raise ValueError(f"dstate {tuple(dstate.shape)} {dstate.dtype} is not fp32 (B,H,P,N) = {(b, h, p, n)}")
     if chunk <= 0:
         raise ValueError(f"chunk must be positive, got {chunk}")
-    tensors = [xbar, log_da, bmat, cmat] + ([state0] if state0 is not None else [])
-    devices = {t.device for t in tensors}
+    devices = {t.device for t in (xbar, log_da, bmat, cmat, state0, *grads) if t is not None}
     if len(devices) != 1:
         raise ValueError(f"ssd_scan inputs on different devices: {devices}")
+    if xbar.device.type not in ("cpu", "cuda"):
+        raise ValueError(f"ssd_scan runs on cpu or cuda, not {xbar.device}")
+    if xbar.device.type == "cuda":
+        if chunk not in _SSD_CHUNKS:
+            raise ValueError(f"chunk {chunk} unsupported: the kernel takes {_SSD_CHUNKS}")
+        if p > 128 or p % 8 or n > 128 or n % 8:
+            raise ValueError(f"head dim {p} / state {n} unsupported: the kernel takes multiples of 8 up to 128")
+        if b == 0 or s == 0 or h == 0:
+            raise ValueError(f"empty scan: xbar {tuple(xbar.shape)}")
+    return b, s, h, p, n
+
+
+def ssd_scan(
+    xbar: torch.Tensor,
+    log_da: torch.Tensor,
+    bmat: torch.Tensor,
+    cmat: torch.Tensor,
+    *,
+    chunk: int = 128,
+    state0: torch.Tensor | None = None,
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """Chunked Mamba2 SSD scan: (y (B,S,H,P) in xbar's dtype, final state (B,H,P,N) fp32).
+
+    xbar (B,S,H,P), log_da (B,S,H) fp32, bmat/cmat (B,S,N) of xbar's dtype
+    (fp32 or bf16), optional fp32 ``state0`` (B,H,P,N); see
+    ``ref.ssd_scan_ref``.  On the card P and N are multiples of 8 up to 128
+    and ``chunk`` is 64 or 128.  bf16 runs Mamba2's chunk-parallel split on
+    the tensor cores (three kernels; B * decay and the chunks' incoming
+    states rounded to bf16, the intra-chunk weights as a bf16 pair hi + lo;
+    ``csrc/ssd_scan.cu``); fp32 runs the CUDA-core kernels in true fp32.
+
+    With grad mode on and an input that requires grad, the call goes through
+    an autograd function whose forward is this one and whose backward is
+    ``ssd_scan_bwd`` (on the card ``csrc/ssd_scan_bwd.cu``).
+    """
+    _check_ssd(xbar, log_da, bmat, cmat, chunk, state0)
+    inputs = (xbar, log_da, bmat, cmat, state0)
+    if torch.is_grad_enabled() and any(t is not None and t.requires_grad for t in inputs):
+        return _SSDScan.apply(xbar, log_da, bmat, cmat, state0, chunk)
+    return _ssd_scan_fwd(xbar, log_da, bmat, cmat, chunk, state0)
+
+
+def _ssd_scan_fwd(xbar, log_da, bmat, cmat, chunk, state0):
     if xbar.device.type == "cpu":
         return ssd_scan_ref(xbar, log_da, bmat, cmat, chunk=chunk, state0=state0)
-    if xbar.device.type != "cuda":
-        raise ValueError(f"ssd_scan runs on cpu or cuda, not {xbar.device}")
-    if chunk not in _SSD_CHUNKS:
-        raise ValueError(f"chunk {chunk} unsupported: the kernel takes {_SSD_CHUNKS}")
-    if p > 128 or p % 8 or n > 128 or n % 8:
-        raise ValueError(f"head dim {p} / state {n} unsupported: the kernel takes multiples of 8 up to 128")
+    tensors = [xbar, log_da, bmat, cmat] + ([state0] if state0 is not None else [])
     if not all(t.is_contiguous() for t in tensors):
         raise ValueError("ssd_scan needs contiguous inputs")
-    if b == 0 or s == 0 or h == 0:
-        raise ValueError(f"empty scan: xbar {tuple(xbar.shape)}")
+    b, s, h, p = xbar.shape
+    n = bmat.shape[-1]
     y = torch.empty_like(xbar)
     state = torch.empty((b, h, p, n), dtype=torch.float32, device=xbar.device)
     is_bf16 = int(xbar.dtype == torch.bfloat16)
@@ -193,3 +237,74 @@ def ssd_scan(
 
 
 ssd_scan.launches = 0
+
+
+class _SSDScan(torch.autograd.Function):
+    """``ssd_scan`` with its gradient: forward ``_ssd_scan_fwd``, backward ``ssd_scan_bwd``."""
+
+    @staticmethod
+    def forward(ctx, xbar, log_da, bmat, cmat, state0, chunk):
+        ctx.chunk = chunk
+        ctx.save_for_backward(xbar, log_da, bmat, cmat, state0)
+        ctx.set_materialize_grads(False)
+        return _ssd_scan_fwd(xbar, log_da, bmat, cmat, chunk, state0)
+
+    @staticmethod
+    def backward(ctx, dy, dstate):
+        xbar, log_da, bmat, cmat, state0 = ctx.saved_tensors
+        dy = torch.zeros_like(xbar) if dy is None else dy.contiguous()
+        dstate = None if dstate is None else dstate.contiguous()
+        dx, dla, db, dc, ds0 = ssd_scan_bwd(xbar, log_da, bmat, cmat, dy, dstate, chunk=ctx.chunk, state0=state0)
+        return dx, dla, db, dc, ds0 if state0 is not None else None, None
+
+
+def ssd_scan_bwd(
+    xbar: torch.Tensor,
+    log_da: torch.Tensor,
+    bmat: torch.Tensor,
+    cmat: torch.Tensor,
+    dy: torch.Tensor,
+    dstate: torch.Tensor | None,
+    *,
+    chunk: int = 128,
+    state0: torch.Tensor | None = None,
+) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor]:
+    """The scan's gradient: (dxbar, dlog_da fp32, dB, dC, dstate0 fp32), see ``ref.ssd_scan_bwd_ref``.
+
+    dy (B,S,H,P) in xbar's dtype, ``dstate`` the fp32 gradient of the final
+    state (None: zero).  On the card ``csrc/ssd_scan_bwd.cu``: the
+    chunk-parallel split in four kernels, fp32 on the CUDA cores for both
+    dtypes, deterministic; dxbar, dB and dC come back in the inputs' dtype.
+    """
+    b, s, h, p, n = _check_ssd(xbar, log_da, bmat, cmat, chunk, state0, dy, dstate)
+    if xbar.device.type == "cpu":
+        if dstate is None:
+            dstate = torch.zeros((b, h, p, n), dtype=torch.float32)
+        return ssd_scan_bwd_ref(xbar, log_da, bmat, cmat, dy, dstate, chunk=chunk, state0=state0)
+    tensors = [t for t in (xbar, log_da, bmat, cmat, state0, dy, dstate) if t is not None]
+    if not all(t.is_contiguous() for t in tensors):
+        raise ValueError("ssd_scan_bwd needs contiguous inputs")
+    dx, db, dc = torch.empty_like(xbar), torch.empty_like(bmat), torch.empty_like(cmat)
+    dla = torch.empty_like(log_da)
+    ds0 = torch.empty((b, h, p, n), dtype=torch.float32, device=xbar.device)
+    lib = _ssd_bwd_lib()
+    nbytes = lib.repro_ssd_scan_bwd_scratch_bytes(b, s, h, p, n, chunk)
+    if nbytes == 0:
+        raise ValueError(f"ssd_scan_bwd refuses xbar {tuple(xbar.shape)}, state {n}, chunk {chunk}")
+    scratch = torch.empty(nbytes, dtype=torch.uint8, device=xbar.device)
+    with torch.cuda.device(xbar.device):
+        err = lib.repro_ssd_scan_bwd(
+            xbar.data_ptr(), log_da.data_ptr(), bmat.data_ptr(), cmat.data_ptr(),
+            None if state0 is None else state0.data_ptr(), dy.data_ptr(),
+            None if dstate is None else dstate.data_ptr(), scratch.data_ptr(), dx.data_ptr(),
+            dla.data_ptr(), db.data_ptr(), dc.data_ptr(), ds0.data_ptr(),
+            b, s, h, p, n, chunk, int(xbar.dtype == torch.bfloat16),
+            torch.cuda.current_stream(xbar.device).cuda_stream,
+        )
+    if err != 0:
+        raise RuntimeError(f"ssd_scan_bwd kernel launch failed with cudaError_t {err}")
+    ssd_scan_bwd.launches += 1
+    return dx, dla, db, dc, ds0
+
+
+ssd_scan_bwd.launches = 0

@@ -93,3 +93,38 @@ def ssd_scan_ref(
         ys.append(y_intra + y_inter)
     y = torch.cat(ys, dim=1)[:, :s]
     return y.to(xbar.dtype), state
+
+
+def ssd_scan_bwd_ref(
+    xbar: torch.Tensor,
+    log_da: torch.Tensor,
+    bmat: torch.Tensor,
+    cmat: torch.Tensor,
+    dy: torch.Tensor,
+    dstate: torch.Tensor,
+    *,
+    chunk: int = 128,
+    state0: torch.Tensor | None = None,
+) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor]:
+    """The SSD scan's gradient: autograd of ``ssd_scan_ref``.
+
+    Given dy (B,S,H,P) and d(final state) ``dstate`` (B,H,P,N), returns
+    (dxbar in xbar's dtype, dlog_da fp32, dB and dC in bmat's dtype, dstate0
+    (B,H,P,N) fp32; the gradient for a zero initial state when ``state0`` is
+    None).  The forward is recomputed in fp32 from leaves that require grad.
+    """
+    x = xbar.detach().float().requires_grad_()
+    a = log_da.detach().float().requires_grad_()
+    bm = bmat.detach().float().requires_grad_()
+    cm = cmat.detach().float().requires_grad_()
+    if state0 is None:
+        b, _, h, p = xbar.shape
+        s0 = torch.zeros((b, h, p, bmat.shape[-1]), dtype=torch.float32, device=xbar.device)
+    else:
+        s0 = state0.detach().float()
+    s0.requires_grad_()
+    with torch.enable_grad():
+        y, state = ssd_scan_ref(x, a, bm, cm, chunk=chunk, state0=s0)
+        dx, da, db, dc, ds0 = torch.autograd.grad((y, state), (x, a, bm, cm, s0),
+                                                  (dy.float(), dstate.float()))
+    return dx.to(xbar.dtype), da, db.to(bmat.dtype), dc.to(cmat.dtype), ds0

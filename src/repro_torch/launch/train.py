@@ -1,0 +1,69 @@
+"""Training launcher, ported from ``repro.launch.train``.
+
+Runs on the card unless ``--device cpu``.  On the CPU it runs the reduced
+configs end to end; on the card the same entry point trains the full
+configs that fit one (mamba2-780m, qwen2-1.5b, zamba2-2.7b, with fp32
+parameters, gradients and AdamW moments).
+
+  PYTHONPATH=src python -m repro_torch.launch.train --arch qwen2-1.5b --reduced \\
+      --device cpu --steps 50 --batch 8 --seq 128 --ckpt checkpoints/qwen2
+  PYTHONPATH=src python -m repro_torch.launch.train --arch mamba2-780m \\
+      --steps 8 --batch 2 --seq 4096 --ckpt checkpoints/mamba2
+
+``--production-mesh`` and ``--multi-pod`` (sharding over many devices) are
+not ported: they raise, naming ROADMAP.md queue 1, item 5.
+"""
+
+from __future__ import annotations
+
+import argparse
+import logging
+import os
+import tempfile
+
+from repro_torch.configs import get_config
+from repro_torch.models.config import InputShape, reduced
+from repro_torch.optim.adamw import AdamWConfig
+from repro_torch.train.trainer import Trainer, TrainerConfig
+
+
+def main(argv: list[str] | None = None) -> None:
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--arch", required=True)
+    ap.add_argument("--reduced", action="store_true", help="tiny same-family config (CPU)")
+    ap.add_argument("--steps", type=int, default=100)
+    ap.add_argument("--batch", type=int, default=8)
+    ap.add_argument("--seq", type=int, default=128)
+    ap.add_argument("--microbatches", type=int, default=1)
+    ap.add_argument("--ckpt", default=os.path.join(tempfile.gettempdir(), "repro_torch_ckpt"))
+    ap.add_argument("--ckpt-every", type=int, default=25)
+    ap.add_argument("--lr", type=float, default=3e-4)
+    ap.add_argument("--production-mesh", action="store_true")
+    ap.add_argument("--multi-pod", action="store_true")
+    ap.add_argument("--device", default=None, help="cuda (default) or cpu")
+    args = ap.parse_args(argv)
+
+    if args.production_mesh or args.multi_pod:
+        raise NotImplementedError(
+            "--production-mesh / --multi-pod shard over many devices, which is not ported yet; "
+            "see ROADMAP.md, queue 1, item 5"
+        )
+    logging.basicConfig(level=logging.INFO, format="%(asctime)s %(name)s %(message)s")
+    cfg = get_config(args.arch)
+    if args.reduced:
+        cfg = reduced(cfg)
+    shape = InputShape("cli", args.seq, args.batch, "train")
+    tcfg = TrainerConfig(
+        steps=args.steps,
+        checkpoint_every=args.ckpt_every,
+        checkpoint_dir=args.ckpt,
+        n_microbatches=args.microbatches,
+    )
+    trainer = Trainer(cfg, shape, None, tcfg, AdamWConfig(lr=args.lr, total_steps=args.steps),
+                      device=args.device)
+    metrics = trainer.run()
+    print("final:", metrics)
+
+
+if __name__ == "__main__":
+    main()

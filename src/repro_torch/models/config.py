@@ -19,9 +19,10 @@ card the hand-written scan kernel (``repro_torch/kernels/csrc/ssd_scan.cu``)
 takes 64 or 128, and it runs on every CUDA prefill of an ssm model (the
 reference's model path runs the scan's XLA twin instead; there is no switch).
 
-``remat``, ``scan_layers`` and ``inner_unroll`` are JAX compilation knobs
-that the port's eager PyTorch code has no use for; they are kept so that the
-configs compare equal.
+``remat`` chooses the training path's activation checkpointing per layer
+(``transformer._maybe_remat``), as in the reference.  ``scan_layers`` and
+``inner_unroll`` are JAX compilation knobs that the port's eager PyTorch
+code has no use for; they are kept so that the configs compare equal.
 """
 
 from __future__ import annotations

@@ -7,9 +7,11 @@ Numerics follow the reference:
 * norms compute in fp32 and return the input dtype;
 * the residual stream is bf16.
 
-The port holds matmul weights and biases in bf16: the reference keeps fp32
-parameters but casts them to bf16 at every call, so a bf16 copy is exactly
-what each call sees.  Norm scales stay fp32, as the norms read them in fp32.
+For serving the port holds matmul weights and biases in bf16: the reference
+keeps fp32 parameters but casts them to bf16 at every call, so a bf16 copy
+is exactly what each call sees.  Norm scales stay fp32, as the norms read
+them in fp32.  For training every leaf stays fp32 (``param_dtype``) and each
+use casts, as in the reference, so the optimizer updates fp32 masters.
 """
 
 from __future__ import annotations
@@ -144,6 +146,29 @@ def embed_tokens(tokens: torch.Tensor, w_embed: torch.Tensor) -> torch.Tensor:
     return F.embedding(tokens, cast(w_embed))
 
 
+class _MatmulF32(torch.autograd.Function):
+    """bf16 (M, K) x (K, N) -> fp32 on the card, with the reference's gradient.
+
+    jax's transpose of ``einsum(bf16, bf16, preferred_element_type=float32)``
+    takes the fp32 cotangent against the other operand widened to fp32, in an
+    fp32 product, and rounds the result once to the operand's dtype (bf16).
+    ``torch.mm(..., out_dtype=torch.float32)`` has no derivative, so the
+    backward computes exactly that.
+    """
+
+    @staticmethod
+    def forward(ctx, a, b):
+        ctx.save_for_backward(a, b)
+        return torch.mm(a, b, out_dtype=torch.float32)
+
+    @staticmethod
+    def backward(ctx, g):
+        a, b = ctx.saved_tensors
+        ga = torch.mm(g, b.float().t()).to(a.dtype) if ctx.needs_input_grad[0] else None
+        gb = torch.mm(a.float().t(), g).to(b.dtype) if ctx.needs_input_grad[1] else None
+        return ga, gb
+
+
 def matmul_f32(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     """(M, K) x (K, N) -> fp32 (M, N) from bf16 operands, as the reference's
     ``einsum(..., preferred_element_type=float32)``.
@@ -152,10 +177,14 @@ def matmul_f32(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     bf16 and could flip a greedy argmax or a router's top-k at a near tie, so
     the fp32 result comes out of the product itself: cuBLAS's bf16 GEMM with
     an fp32 output on the card, and an fp32 product of the (exactly
-    representable) bf16 values on the CPU, which has no such GEMM.
+    representable) bf16 values on the CPU, which has no such GEMM.  Under
+    autograd on the card it runs through ``_MatmulF32``; on the CPU autograd
+    of the fp32 product already computes the reference's gradient.
     """
     a, b = cast(a), cast(b)
     if a.is_cuda:
+        if torch.is_grad_enabled() and (a.requires_grad or b.requires_grad):
+            return _MatmulF32.apply(a, b)
         return torch.mm(a, b, out_dtype=torch.float32)
     return torch.mm(a.float(), b.float())
 
@@ -164,3 +193,10 @@ def lm_head(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     """x: (B, S, D) bf16, w: (D, V) -> logits (B, S, V) fp32 (``matmul_f32``)."""
     b, s, d = x.shape
     return matmul_f32(x.reshape(b * s, d), w).reshape(b, s, -1)
+
+
+def cross_entropy(logits: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
+    """Mean CE over all positions; logits fp32 (B, S, V), labels (B, S)."""
+    lse = torch.logsumexp(logits, dim=-1)
+    target = torch.gather(logits, -1, labels[..., None].long())[..., 0]
+    return torch.mean(lse - target)

@@ -3,6 +3,7 @@
 Entry points:
   init_params(cfg, generator, device)   -> parameter dict
   forward(params, cfg, batch, cache)    -> (logits fp32, aux, new_cache)
+  loss_fn(params, cfg, batch)           -> (scalar loss, {"ce", "aux"})
 
 Parameters are a plain dict shaped like the reference's pytree, except that
 ``layers`` is a list of per-layer dicts (the reference stacks them on a
@@ -10,8 +11,12 @@ leading axis and scans; the port loops): for the hybrid family a list of
 groups, each a list of ``attn_every`` mamba layers, beside the one
 ``shared`` decoder block; for the audio family ``enc_layers`` too.  Matmul
 weights and biases are held in bf16 and norm scales in fp32 (see
-``layers``).  ``weights.from_jax_params`` carries the reference's parameters
-across.
+``layers``), or every leaf in fp32 for training (``param_dtype``).
+``weights.from_jax_params`` carries the reference's parameters across.
+
+Under autograd without a cache, each layer of every stack runs under the
+config's ``remat`` policy (``_maybe_remat``), where the reference wraps each
+scan body in ``jax.checkpoint``.
 
 Families: dense (qwen2, granite, internlm2), moe (olmoe, qwen3-moe: a dense
 decoder whose MLP is the capacity-routed ``moe.moe_block``), ssm (mamba2),
@@ -24,6 +29,7 @@ positions).
 
 from __future__ import annotations
 
+import functools
 import math
 from typing import Any
 
@@ -48,7 +54,8 @@ def require_ported(cfg: ModelConfig) -> None:
 
 # =================================================================== init
 def init_params(
-    cfg: ModelConfig, generator: torch.Generator, device: torch.device | str | None = None
+    cfg: ModelConfig, generator: torch.Generator, device: torch.device | str | None = None,
+    param_dtype: torch.dtype = L.COMPUTE_DTYPE,
 ) -> Params:
     """Random parameters with the reference's shapes and scales (``init_params``).
 
@@ -61,6 +68,11 @@ def init_params(
     must live on ``device``, and differ from ``jax.random``'s for the same
     seed: to compare with the reference, carry its parameters across with
     ``repro_torch.weights.from_jax_params``.
+
+    ``param_dtype`` is the dtype of the matmul and conv weights and biases:
+    bf16 for serving (what every use casts them to), fp32 for training, where
+    the optimizer updates fp32 masters as the reference's does.  The other
+    leaves are fp32 either way.
     """
     require_ported(cfg)
     dev = resolve_device(device)
@@ -68,10 +80,10 @@ def init_params(
     def normal(shape, scale=None):
         scale = scale if scale is not None else 1.0 / np.sqrt(shape[0])
         w = torch.randn(shape, generator=generator, dtype=torch.float32, device=dev) * scale
-        return w.to(L.COMPUTE_DTYPE)
+        return w.to(param_dtype)
 
     def zeros(n):
-        return torch.zeros((n,), dtype=L.COMPUTE_DTYPE, device=dev)
+        return torch.zeros((n,), dtype=param_dtype, device=dev)
 
     def ones(n):
         return torch.ones((n,), dtype=torch.float32, device=dev)
@@ -153,6 +165,37 @@ def init_params(
     return params
 
 
+# =================================================================== remat
+def _dots_policy(ctx, op, *args, **kwargs):
+    """Keep the 2-D products (``aten.mm``: ``dense``, ``matmul_f32``), recompute the rest."""
+    from torch.utils.checkpoint import CheckpointPolicy
+
+    if getattr(op, "overloadpacket", None) in (torch.ops.aten.mm, torch.ops.aten.addmm):
+        return CheckpointPolicy.MUST_SAVE
+    return CheckpointPolicy.PREFER_RECOMPUTE
+
+
+def _maybe_remat(fn, cfg: ModelConfig, cache):
+    """``fn`` under ``cfg.remat``, as the reference wraps each scan body (``_maybe_remat``).
+
+    ``"full"`` recomputes the layer in the backward
+    (``torch.utils.checkpoint``, non-reentrant), the counterpart of
+    ``jax.checkpoint``; ``"dots"`` keeps the 2-D products and recomputes the
+    rest, the counterpart of ``checkpoint_dots_with_no_batch_dims`` (batched
+    products, the attention's and the experts', are recomputed); ``"none"``
+    keeps everything.  With a cache, or with grad mode off (serving), ``fn``
+    runs as it is: no cache is used under remat.
+    """
+    if cfg.remat == "none" or cache is not None or not torch.is_grad_enabled():
+        return fn
+    from torch.utils.checkpoint import checkpoint, create_selective_checkpoint_contexts
+
+    kwargs = {"use_reentrant": False}
+    if cfg.remat == "dots":
+        kwargs["context_fn"] = functools.partial(create_selective_checkpoint_contexts, _dots_policy)
+    return functools.partial(checkpoint, fn, **kwargs)
+
+
 # =================================================================== blocks
 def _decoder_block(cfg: ModelConfig, x, p, positions, cache, enc_kv=None):
     """Pre-norm transformer block: self-attention [+ cross-attention] + MLP or MoE.
@@ -185,9 +228,10 @@ def _mamba_layer(cfg: ModelConfig, x, p, cache):
 def _mamba_stack(cfg: ModelConfig, x, layers: list, caches: dict | None, lead: tuple = ()):
     """Mamba layers in order; ``caches`` holds ``S.CACHE_KEYS`` buffers whose
     index ``(*lead, i)`` is layer i's, overwritten in place."""
+    layer = _maybe_remat(functools.partial(_mamba_layer, cfg), cfg, caches)
     for i, p in enumerate(layers):
         layer_cache = {k: caches[k][(*lead, i)] for k in S.CACHE_KEYS} if caches is not None else None
-        x, layer_new = _mamba_layer(cfg, x, p, layer_cache)
+        x, layer_new = layer(x, p, layer_cache)
         if caches is not None:
             for k in S.CACHE_KEYS:
                 caches[k][(*lead, i)].copy_(layer_new[k])
@@ -252,12 +296,17 @@ def _encode_audio(params: Params, cfg: ModelConfig, frames: torch.Tensor) -> tor
     """
     x = L.cast(frames) + L.sinusoidal_positions(frames.shape[1], cfg.d_model, frames.device).to(L.COMPUTE_DTYPE)
     positions = torch.zeros(x.shape[:2], dtype=torch.int32, device=x.device)
-    for p in params["enc_layers"]:
+
+    def body(x, p):
         h = L.rms_norm(x, p["ln1"], cfg.norm_eps)
         attn_out, _ = A.self_attention(h, p["attn"], cfg, positions=positions, causal=False, use_rope=False)
         x = x + attn_out
         h = L.rms_norm(x, p["ln2"], cfg.norm_eps)
-        x = x + L.mlp_block(h, p["mlp"], cfg.mlp)
+        return x + L.mlp_block(h, p["mlp"], cfg.mlp)
+
+    body = _maybe_remat(body, cfg, None)
+    for p in params["enc_layers"]:
+        x = body(x, p)
     return L.rms_norm(x, params["enc_norm"], cfg.norm_eps)
 
 
@@ -299,15 +348,32 @@ def forward(params: Params, cfg: ModelConfig, batch: dict, cache: dict | None = 
                 enc_kv = (torch.stack([k for k, _ in kvs]), torch.stack([v for _, v in kvs]))
             if new_cache is not None:
                 new_cache["enc_kv"] = enc_kv
+        block = _maybe_remat(functools.partial(_decoder_block, cfg), cfg, cache)
         for i, p in enumerate(params["layers"]):
             layer_cache = None
             if cache is not None:
                 layer_cache = {"k": cache["k"][i], "v": cache["v"][i], "len": cache["len"]}
             ekv = (enc_kv[0][i], enc_kv[1][i]) if enc_kv is not None else None
-            x, layer_aux, _ = _decoder_block(cfg, x, p, positions, layer_cache, ekv)
+            x, layer_aux, _ = block(x, p, positions, layer_cache, ekv)
             if layer_aux is not None:
                 aux = aux + layer_aux
     x = L.rms_norm(x, params["final_norm"], cfg.norm_eps)
     w_head = params["embed"].t() if cfg.tie_embeddings else params["lm_head"]
     logits = L.lm_head(x, w_head)
     return logits, aux, new_cache
+
+
+def loss_fn(params: Params, cfg: ModelConfig, batch: dict, aux_weight: float = 0.01):
+    """Mean next-token cross-entropy plus ``aux_weight`` times the MoE's load-balance loss.
+
+    ``batch["labels"]`` (B, S_text); for vlm with vision embeddings the loss
+    covers the text positions only.  Returns (loss, {"ce", "aux"}), 0-d fp32
+    tensors.
+    """
+    logits, aux, _ = forward(params, cfg, batch)
+    labels = batch["labels"]
+    if cfg.family == "vlm" and "vision_embeds" in batch:
+        # loss only on the text positions (vision positions carry no labels)
+        logits = logits[:, batch["vision_embeds"].shape[1]:]
+    ce = L.cross_entropy(logits, labels)
+    return ce + aux_weight * aux, {"ce": ce, "aux": aux}

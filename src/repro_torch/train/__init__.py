@@ -1,1 +1,6 @@
-"""Step factories of the port (serving steps only so far)."""
+"""Step factories and the fault-tolerant trainer, ported from ``repro.train``.
+
+The trainer is imported lazily (``repro_torch.train.trainer``): the serving
+path imports ``train.steps`` and has no use for the data pipeline or the
+checkpoint manager.
+"""

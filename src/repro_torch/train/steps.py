@@ -1,21 +1,93 @@
-"""prefill_step / serve_step factories, ported from ``repro.train.steps``.
+"""train_step / prefill_step / serve_step factories, ported from ``repro.train.steps``.
+
+``make_train_step`` builds a (params, opt_state, batch) -> (params,
+opt_state, metrics) function with optional microbatch gradient
+accumulation, unrolled as in the reference (each microbatch's activations
+are freed before the next, one optimizer step per global batch), and an
+optional ``grad_transform`` hook on the gradients.  It runs eager; a CUDA
+graph of the whole step, the counterpart of the reference's ``jax.jit``,
+is later work.
 
 ``make_serve_step`` is the decode step: one new token against a KV cache,
 eager.  ``capture_serve_step`` is the port's counterpart of the reference's
 ``jax.jit(serve_step)``: ``serve_step_in_place``, the same step over fixed
 buffers, captured once as a CUDA graph and replayed.  ``make_prefill_step`` is the logits-only forward of the prefill.
-Training steps are not ported yet.
 """
 
 from __future__ import annotations
 
 import dataclasses
+from typing import Any, Callable
 
 import torch
 
 from repro_torch.models import transformer as T
 from repro_torch.models.kvcache import advance
 from repro_torch.models.config import ModelConfig
+from repro_torch.optim.adamw import AdamWConfig, adamw_update, tree_leaves, tree_map, tree_unflatten
+
+
+def _split_microbatches(batch: dict, n: int) -> dict:
+    """Every batch entry (B, ...) -> (n, B/n, ...); M-RoPE positions (3, B, S) -> (n, 3, B/n, S)."""
+
+    def re(x):
+        b = x.shape[0]
+        if b % n:
+            raise ValueError(f"batch {b} does not split into {n} microbatches")
+        return x.reshape(n, b // n, *x.shape[1:])
+
+    out = {}
+    for k, v in batch.items():
+        if k == "positions" and v.ndim == 3:  # (3, B, S) m-rope positions
+            if v.shape[1] % n:
+                raise ValueError(f"batch {v.shape[1]} does not split into {n} microbatches")
+            out[k] = torch.stack(torch.split(v, v.shape[1] // n, dim=1), dim=0)  # (n, 3, B/n, S)
+        else:
+            out[k] = re(v)
+    return out
+
+
+def value_and_grad(cfg: ModelConfig, params, batch: dict):
+    """(loss, metrics, grads) of ``T.loss_fn`` at ``params``, which are left as
+    they were; the gradients have the parameters' dtypes and tree."""
+    flat = [p.detach().requires_grad_() for p in tree_leaves(params)]
+    with torch.enable_grad():
+        loss, metrics = T.loss_fn(tree_unflatten(params, flat), cfg, batch)
+        grads = torch.autograd.grad(loss, flat, allow_unused=True)
+    grads = [torch.zeros_like(p) if g is None else g for p, g in zip(flat, grads)]
+    return loss.detach(), {k: v.detach() for k, v in metrics.items()}, tree_unflatten(params, grads)
+
+
+def make_train_step(
+    cfg: ModelConfig,
+    opt_cfg: AdamWConfig,
+    n_microbatches: int = 1,
+    grad_transform: Callable[[Any], Any] | None = None,
+):
+    def train_step(params, opt_state, batch):
+        """Metrics are 0-d device tensors: loss, ce, aux, grad_norm, lr."""
+        if n_microbatches == 1:
+            loss, metrics, grads = value_and_grad(cfg, params, batch)
+        else:
+            micro = _split_microbatches(batch, n_microbatches)
+            grads = tree_map(lambda p: torch.zeros(p.shape, dtype=torch.float32, device=p.device), params)
+            loss = 0.0
+            metrics_acc = []
+            for i in range(n_microbatches):
+                mb = {k: v[i] for k, v in micro.items()}
+                li, mi, gi = value_and_grad(cfg, params, mb)
+                grads = tree_map(lambda a, b: a + b, grads, gi)
+                loss = loss + li
+                metrics_acc.append(mi)
+            grads = tree_map(lambda g: g / n_microbatches, grads)
+            loss = loss / n_microbatches
+            metrics = {k: torch.mean(torch.stack([m[k] for m in metrics_acc])) for k in metrics_acc[0]}
+        if grad_transform is not None:
+            grads = grad_transform(grads)
+        new_params, new_opt, om = adamw_update(params, grads, opt_state, opt_cfg)
+        return new_params, new_opt, {"loss": loss, **metrics, **om}
+
+    return train_step
 
 
 def make_prefill_step(cfg: ModelConfig):

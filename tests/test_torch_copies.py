@@ -64,6 +64,8 @@ VERBATIM = (
     "analysis/cli.py",
     "analysis/locks.py",
     "analysis/reporters.py",
+    "data/__init__.py",
+    "data/pipeline.py",
 )
 
 _STATELESS = (
@@ -100,7 +102,7 @@ DIVERGENT = {
                          "the torch counterpart of no-eager-jax (tests/test_torch_analysis.py)",
 }
 
-PACKAGES = ("api", "obs", "core", "accelerators", "checkpoint", "runtime", "serving", "analysis")
+PACKAGES = ("api", "obs", "core", "accelerators", "checkpoint", "runtime", "serving", "analysis", "data")
 
 
 def _as_port(source: str) -> str:

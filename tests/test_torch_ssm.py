@@ -12,7 +12,9 @@ The card's bf16 kernel computes the scan by Mamba2's chunk-parallel split
 output) and rounds its operands to bf16; ``_split_scan`` below repeats its
 phases and rounding points in plain PyTorch, and is held against the plain
 scan in fp32 without rounding (the algebra of the split) and against the
-reference's kernels in bf16 with the kernel's rounding.
+reference's kernels in bf16 with the kernel's rounding.  ``_split_scan_bwd``
+likewise repeats the phases of the card's backward kernel
+(``csrc/ssd_scan_bwd.cu``), held against autograd of the plain scan.
 
 Bars are the reference's own (``tests/test_kernels.py``): the Pallas kernel's
 fp32 2e-5 and bf16 atol 2e-2 / rtol 5e-2; the twin's fp32 atol 2e-5 / rtol
@@ -196,6 +198,83 @@ def test_chunk_parallel_split_equals_the_plain_scan(s, chunk, with_state):
     y_ref, st_ref = ref.ssd_scan_ref(*tin[:4], chunk=chunk, state0=state0)
     np.testing.assert_allclose(_np(y), _np(y_ref), atol=2e-5, rtol=2e-5)
     np.testing.assert_allclose(_np(st), _np(st_ref), atol=2e-5, rtol=2e-5)
+
+
+def _split_scan_bwd(xbar, log_da, bmat, cmat, dy, dstate, *, chunk, state0=None):
+    """The card's backward kernel (``csrc/ssd_scan_bwd.cu``), phase by phase, in plain PyTorch (fp32).
+
+    1. S_loc[c] = X^T diag(e^{A-a}) B and U_loc[c] = dY^T diag(e^{a}) C;
+    2. S_in forward over the chunks from state0, dS_out backward from dstate,
+       dstate0 = e^{A_0} dS_out[0] + U_loc[0];
+    3. M = L * C B^T, E = L * dY X^T (L on and below the diagonal), G = M * dY X^T;
+       dx = M^T dY + diag(e^{A-a}) B dS'^T, db = E^T C + diag(e^{A-a}) X dS',
+       dc = E B + diag(e^a) dY S; R_i = c_i . dc_inter_i, T_j = x_j . dx_inter_j;
+       da = rowsum G - colsum G + R - T, plus e^A <dS', S> + sum T at the
+       chunk's last step, and dlog_da its reverse cumulative sum;
+    4. dB and dC summed over heads.
+    """
+    b, s, h, p = xbar.shape
+    n = bmat.shape[-1]
+    pad = (-s) % chunk
+    nc = (s + pad) // chunk
+    x, dyp, a, bm, cm = (torch.nn.functional.pad(t.float(), (0, 0) * (t.ndim - 2) + (0, pad))
+                         for t in (xbar, dy, log_da, bmat, cmat))
+    x, dyp = x.reshape(b, nc, chunk, h, p), dyp.reshape(b, nc, chunk, h, p)
+    bm, cm = bm.reshape(b, nc, chunk, n), cm.reshape(b, nc, chunk, n)
+    a = a.reshape(b, nc, chunk, h).cumsum(2)
+    a_last = a[:, :, -1]  # (B,nc,H)
+    w_out, w_in = torch.exp(a_last[:, :, None] - a), torch.exp(a)  # (B,nc,Q,H)
+    s_loc = torch.einsum("bcjhp,bcjh,bcjn->bchpn", x, w_out, bm)
+    u_loc = torch.einsum("bcihp,bcih,bcin->bchpn", dyp, w_in, cm)
+    st = torch.zeros((b, h, p, n)) if state0 is None else state0.float()
+    s_in = []
+    for c in range(nc):
+        s_in.append(st)
+        st = torch.exp(a_last[:, c])[..., None, None] * st + s_loc[:, c]
+    g = dstate.float()
+    ds_out = [None] * nc
+    for c in reversed(range(nc)):
+        ds_out[c] = g
+        g = torch.exp(a_last[:, c])[..., None, None] * g + u_loc[:, c]
+    s_in, ds_out = torch.stack(s_in, 1), torch.stack(ds_out, 1)  # (B,nc,H,P,N)
+    idx = torch.arange(chunk)
+    lower = idx[:, None] >= idx[None, :]
+    at = a.permute(0, 1, 3, 2)  # (B,nc,H,Q)
+    lmat = torch.exp((at[..., :, None] - at[..., None, :]).masked_fill(~lower, float("-inf")))
+    m = lmat * torch.einsum("bcin,bcjn->bcij", cm, bm)[:, :, None]
+    dx_t_x = torch.einsum("bcihp,bcjhp->bchij", dyp, x)
+    e, gm = lmat * dx_t_x, m * dx_t_x
+    dx_inter = w_out[..., None] * torch.einsum("bcjn,bchpn->bcjhp", bm, ds_out)
+    dx = torch.einsum("bchij,bcihp->bcjhp", m, dyp) + dx_inter
+    db = (torch.einsum("bchij,bcin->bchjn", e, cm)
+          + w_out.permute(0, 1, 3, 2)[..., None] * torch.einsum("bcjhp,bchpn->bchjn", x, ds_out))
+    dc_inter = w_in.permute(0, 1, 3, 2)[..., None] * torch.einsum("bcihp,bchpn->bchin", dyp, s_in)
+    dc = torch.einsum("bchij,bcjn->bchin", e, bm) + dc_inter
+    r = torch.einsum("bchin,bcin->bchi", dc_inter, cm)
+    t = torch.einsum("bcjhp,bcjhp->bchj", x, dx_inter)
+    da = gm.sum(-1) - gm.sum(-2) + r - t
+    da[..., -1] += torch.exp(a_last) * (ds_out * s_in).sum((-1, -2)) + t.sum(-1)
+    dla = da.flip(-1).cumsum(-1).flip(-1).permute(0, 1, 3, 2).reshape(b, nc * chunk, h)
+    return (dx.reshape(b, nc * chunk, h, p)[:, :s], dla[:, :s], db.sum(2).reshape(b, nc * chunk, n)[:, :s],
+            dc.sum(2).reshape(b, nc * chunk, n)[:, :s], g)
+
+
+@pytest.mark.parametrize("s", [300, 128])  # ragged; one chunk
+@pytest.mark.parametrize("chunk", [64, 128])
+@pytest.mark.parametrize("with_state", [False, True])
+def test_backward_split_equals_autograd_of_the_plain_scan(s, chunk, with_state):
+    """The backward kernel's algebra in fp32 against autograd of the plain scan
+    (``ssd_scan_bwd_ref``), each gradient within atol 2e-5 x max|g| and rtol
+    2e-4, the backward kernel's fp32 bar (``chip_smoke.py``)."""
+    _, tin = _scan_inputs(7, 2, s, 4, 16, 32, state=with_state)
+    state0 = tin[4] if with_state else None
+    rng = np.random.default_rng(8)
+    dy = torch.from_numpy(rng.standard_normal((2, s, 4, 16)).astype(np.float32))
+    dstate = torch.from_numpy(rng.standard_normal((2, 4, 16, 32)).astype(np.float32))
+    got = _split_scan_bwd(*tin[:4], dy, dstate, chunk=chunk, state0=state0)
+    want = ref.ssd_scan_bwd_ref(*tin[:4], dy, dstate, chunk=chunk, state0=state0)
+    for g, w in zip(got, want):
+        np.testing.assert_allclose(_np(g), _np(w), rtol=2e-4, atol=2e-5 * float(w.abs().max()))
 
 
 @pytest.mark.parametrize("b,s,h,p,n", [(1, 300, 8, 64, 128), (2, 512, 4, 64, 128)])
