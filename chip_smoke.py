@@ -32,8 +32,10 @@ Phases, each failing loudly (an exception or a non-zero exit):
    of ``tests/test_kernels.py``, mamba2-780m's training shape x (2, 4,096,
    48, 64) N 128, zamba2-2.7b's x (2, 4,096, 80, 64) N 64, a ragged S with a
    nonzero initial state and d(final state), chunk 64, a part-filled tile
-   (P 24, N 16), batch 1 x 2,048 from a unit-scale initial state, and B and
-   C not 16-byte aligned; ``ops.ssd_scan`` under autograd
+   (P 24, N 16), batch 1 x 2,048 from a unit-scale initial state, P 128 /
+   N 128, and B and C not 16-byte aligned (bf16 cases run the tensor-core
+   kernels, fp32 cases the CUDA-core ones); two bf16 calls at the training
+   shape bitwise equal; ``ops.ssd_scan`` under autograd
    launching the forward and then the backward kernel; ``matmul_f32``'s
    gradients at the lm_head's training shape against autograd of the fp32
    product (``MATMUL_GRAD_TOL``); flash attention's refusal of autograd;
@@ -187,7 +189,7 @@ Phases, each failing loudly (an exception or a non-zero exit):
    ``bound_share`` is ``bound_ms / ms``; ``ssd_scan`` also counts the
    training run's launches and times, under ``"train mamba2-780m"``, and
    ``ssd_scan_bwd`` is timed at the training shape, its plain version by CUDA
-   events), a ``{"train": ...}`` line per model and a
+   events, with its split among its kernels and its scratch bytes), a ``{"train": ...}`` line per model and a
    ``{"train_reduced": ...}`` line (phase 8), an ``{"estimation": ...}`` line,
    then the result line, last:
    ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
@@ -611,8 +613,10 @@ def check_ssd() -> dict:
 # atol = 2e-5 * max|g_ref| and rtol 2e-4, the XLA twin's bar
 # (tests/test_torch_ssm.py) scaled to the gradient; bf16 inputs
 # atol = 2e-2 * max|g_ref| and rtol 5e-2, the scan's own bf16 bar.  Both
-# versions compute in fp32 from the same (bf16-rounded) inputs; they differ
-# by the order of their fp32 sums and, for bf16, one rounding of dx, dB, dC.
+# versions start from the same (bf16-rounded) inputs.  In fp32 they differ by
+# the order of their fp32 sums; in bf16 the kernel also rounds its operands
+# at the points its source note lists (states, intra-chunk weights, decayed
+# rows) and dx, dB, dC once on the way out.
 SSD_BWD_TOL = {"float32": (2e-5, 2e-4), "bfloat16": (2e-2, 5e-2)}
 # matmul_f32's backward against autograd of the same product in fp32: both
 # take one fp32 GEMM and round once to bf16, in cuBLAS's sum order each, so
@@ -631,9 +635,12 @@ def _within(got, want, atol_frac: float, rtol: float) -> tuple[bool, float]:
 
 def check_ssd_bwd() -> dict:
     """Phase 3b: the scan's backward kernel against its plain version
-    (autograd of ``ssd_scan_ref``), every gradient within ``SSD_BWD_TOL``;
-    ``matmul_f32``'s gradients; flash's refusal under autograd.  Returns the
-    largest error over the gradients at mamba2-780m's training shape."""
+    (autograd of ``ssd_scan_ref``), every gradient within ``SSD_BWD_TOL``, at
+    ten shapes in fp32 (the CUDA-core kernels) and bf16 (the tensor-core
+    kernels); two bf16 calls at the training shape bitwise equal; B and C
+    misaligned; ``matmul_f32``'s gradients; flash's refusal under autograd.
+    Returns the largest error over the gradients at mamba2-780m's training
+    shape."""
     import torch
 
     from repro_torch.kernels import ops, ref
@@ -652,6 +659,7 @@ def check_ssd_bwd() -> dict:
         ("chunk 64", 2, 300, 8, 64, 128, 64, True, True),
         ("part tile p24 n16", 1, 300, 4, 24, 16, 64, True, True),
         ("long chain s2048", 1, LONG_PROMPT, 48, 64, 128, 128, True, True),
+        ("p128 n128", 2, 300, 8, 128, 128, 128, True, True),
     ]
     names = ("dx", "dlog_da", "dB", "dC", "dstate0")
     train_err = 0.0
@@ -679,6 +687,18 @@ def check_ssd_bwd() -> dict:
                 f"rtol={rtol:g}) {'ok' if ok else 'FAIL'}")
             if not ok:
                 raise AssertionError(f"ssd_scan_bwd [{name}] {dt} disagrees with its plain version")
+    # two bf16 calls at mamba2-780m's training shape return the same bits (no
+    # atomics, every sum in a fixed order): the trainer's resume relies on it
+    x, la, bm, cm, _ = ssd_inputs(gen, TRAIN_BATCH, TRAIN_SEQ, 48, 64, 128, bf16, False)
+    dy = torch.randn(x.shape, generator=gen, device="cuda").to(bf16)
+    first = ops.ssd_scan_bwd(x, la, bm, cm, dy, None)
+    again = ops.ssd_scan_bwd(x, la, bm, cm, dy, None)
+    same = all(torch.equal(u, v) for u, v in zip(first, again))
+    log(f"kernel ssd_scan_bwd x{tuple(x.shape)} bf16, two calls on the same inputs: "
+        f"{'bitwise equal' if same else 'DIFFER'}")
+    if not same:
+        raise AssertionError("ssd_scan_bwd is not bitwise repeatable")
+    del x, la, bm, cm, dy, first, again
     # B and C not 16-byte aligned (the kernel loads them element by element)
     x, la, bm, cm, s0 = ssd_inputs(gen, 2, 300, 4, 64, 128, bf16, True)
     dy = torch.randn(x.shape, generator=gen, device="cuda").to(bf16)
@@ -1716,8 +1736,11 @@ def time_ssd_train() -> dict:
     plain_bwd = cuda_time_ms(lambda: ref.ssd_scan_bwd_ref(x, la, bm, cm, dy, zero), reps=3, warmup=1)
     fwd_bound, fwd_by = ssd_bound_ms(x, la, bm, None, 128)
     bwd_bound, bwd_by = ssd_bwd_bound_ms(x, la, bm, None, None, 128)
-    # the backward's split among its four kernels, from torch.profiler; [] when it recorded none
+    # the backward's split among its five kernels, from torch.profiler; [] when it recorded none
     split = device_ms(bwd, calls=5, warmup=1, sessions=1)["top"]
+    lib = ops._ssd_bwd_lib()
+    scratch = {dt: lib.repro_ssd_scan_bwd_scratch_bytes(TRAIN_BATCH, TRAIN_SEQ, 48, 64, 128, 128, int(dt == "bf16"))
+               for dt in ("bf16", "fp32")}
     log(f"ssd_scan x{tuple(x.shape)} n=128 bf16 (training shape), ms per call by CUDA-graph replay "
         f"(CUDA events): forward {fwd_ms:.4f} ({fwd_ev:.4f}), plain {plain_fwd:.4f} (events), bound "
         f"{fwd_bound:.4f} ({fwd_by}); backward {bwd_ms:.4f} / {bwd2_ms:.4f} ({bwd_ev:.4f}), plain "
@@ -1725,6 +1748,8 @@ def time_ssd_train() -> dict:
         f"library: none")
     log("ssd_scan_bwd device ms per call by kernel: "
         + ("; ".join(f"{k[:60]} {ms:.4f}" for k, ms in split) or "not measured"))
+    log(f"ssd_scan_bwd scratch a call at the training shape: {scratch['bf16']} bytes (bf16 path; the fp32 "
+        f"path's layout {scratch['fp32']})")
     none = {"library_ms": None, "library_profiler_ms": None, "library_event_ms": None,
             "profiler_ms": None, "plain_profiler_ms": None}
     return {
@@ -1732,7 +1757,7 @@ def time_ssd_train() -> dict:
                      "plain_event_ms": plain_fwd, "bound_ms": fwd_bound, "bound_by": fwd_by, **none},
         "ssd_scan_bwd": {"x": list(x.shape), "n": 128, "ms": bwd_ms, "ms_again": bwd2_ms, "event_ms": bwd_ev,
                          "plain_ms": plain_bwd, "plain_event_ms": plain_bwd, "bound_ms": bwd_bound,
-                         "bound_by": bwd_by, "split": split or None, **none},
+                         "bound_by": bwd_by, "split": split or None, "scratch_bytes": scratch["bf16"], **none},
     }
 
 
@@ -2757,7 +2782,7 @@ def main() -> int:
         "launches_by_slice": {"train mamba2-780m": train_launches["ssd_scan_bwd"]},
         "max_abs_err": bwd["max_abs_err"],
         **{k: bwd[k] for k in ("ms", "ms_again", "plain_ms", "bound_ms", "bound_by", "library_ms", "event_ms",
-                               "plain_event_ms", "profiler_ms", "bound_share", "x", "n", "split")},
+                               "plain_event_ms", "profiler_ms", "bound_share", "x", "n", "split", "scratch_bytes")},
     })
     log(f"chip_smoke: {time.perf_counter() - t_start:.1f} s in all")
     log(json.dumps({"lint": lint}))

@@ -123,7 +123,7 @@ def _ssd_bwd_lib() -> ctypes.CDLL:
     fn.argtypes = [ctypes.c_void_p] * 13 + [ctypes.c_int] * 7 + [ctypes.c_void_p]
     fn.restype = ctypes.c_int
     size = lib.repro_ssd_scan_bwd_scratch_bytes
-    size.argtypes = [ctypes.c_int] * 6
+    size.argtypes = [ctypes.c_int] * 7
     size.restype = ctypes.c_size_t
     return lib
 
@@ -272,9 +272,12 @@ def ssd_scan_bwd(
     """The scan's gradient: (dxbar, dlog_da fp32, dB, dC, dstate0 fp32), see ``ref.ssd_scan_bwd_ref``.
 
     dy (B,S,H,P) in xbar's dtype, ``dstate`` the fp32 gradient of the final
-    state (None: zero).  On the card ``csrc/ssd_scan_bwd.cu``: the
-    chunk-parallel split in four kernels, fp32 on the CUDA cores for both
-    dtypes, deterministic; dxbar, dB and dC come back in the inputs' dtype.
+    state (None: zero).  On the card ``csrc/ssd_scan_bwd.cu``, the
+    chunk-parallel split, deterministic (no atomics, sums in a fixed order):
+    bf16 on the tensor cores (five kernels; the causal triangle only; the
+    state operands, the intra-chunk weights and the decayed rows rounded to
+    bf16, every sum in fp32), fp32 in true fp32 on the CUDA cores (four
+    kernels).  dxbar, dB and dC come back in the inputs' dtype.
     """
     b, s, h, p, n = _check_ssd(xbar, log_da, bmat, cmat, chunk, state0, dy, dstate)
     if xbar.device.type == "cpu":
@@ -287,8 +290,9 @@ def ssd_scan_bwd(
     dx, db, dc = torch.empty_like(xbar), torch.empty_like(bmat), torch.empty_like(cmat)
     dla = torch.empty_like(log_da)
     ds0 = torch.empty((b, h, p, n), dtype=torch.float32, device=xbar.device)
+    is_bf16 = int(xbar.dtype == torch.bfloat16)
     lib = _ssd_bwd_lib()
-    nbytes = lib.repro_ssd_scan_bwd_scratch_bytes(b, s, h, p, n, chunk)
+    nbytes = lib.repro_ssd_scan_bwd_scratch_bytes(b, s, h, p, n, chunk, is_bf16)
     if nbytes == 0:
         raise ValueError(f"ssd_scan_bwd refuses xbar {tuple(xbar.shape)}, state {n}, chunk {chunk}")
     scratch = torch.empty(nbytes, dtype=torch.uint8, device=xbar.device)
@@ -298,8 +302,7 @@ def ssd_scan_bwd(
             None if state0 is None else state0.data_ptr(), dy.data_ptr(),
             None if dstate is None else dstate.data_ptr(), scratch.data_ptr(), dx.data_ptr(),
             dla.data_ptr(), db.data_ptr(), dc.data_ptr(), ds0.data_ptr(),
-            b, s, h, p, n, chunk, int(xbar.dtype == torch.bfloat16),
-            torch.cuda.current_stream(xbar.device).cuda_stream,
+            b, s, h, p, n, chunk, is_bf16, torch.cuda.current_stream(xbar.device).cuda_stream,
         )
     if err != 0:
         raise RuntimeError(f"ssd_scan_bwd kernel launch failed with cudaError_t {err}")

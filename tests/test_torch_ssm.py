@@ -14,7 +14,9 @@ phases and rounding points in plain PyTorch, and is held against the plain
 scan in fp32 without rounding (the algebra of the split) and against the
 reference's kernels in bf16 with the kernel's rounding.  ``_split_scan_bwd``
 likewise repeats the phases of the card's backward kernel
-(``csrc/ssd_scan_bwd.cu``), held against autograd of the plain scan.
+(``csrc/ssd_scan_bwd.cu``): in fp32 against autograd of the plain scan, and
+with the bf16 kernels' rounding points against autograd of the plain scan and
+``jax.grad`` of the twin, within the bf16 bar.
 
 Bars are the reference's own (``tests/test_kernels.py``): the Pallas kernel's
 fp32 2e-5 and bf16 atol 2e-2 / rtol 5e-2; the twin's fp32 atol 2e-5 / rtol
@@ -32,6 +34,7 @@ import pytest
 
 torch = pytest.importorskip("torch")
 
+import jax  # noqa: E402
 import jax.numpy as jnp  # noqa: E402
 
 from repro.kernels import ops as jops  # noqa: E402
@@ -200,8 +203,8 @@ def test_chunk_parallel_split_equals_the_plain_scan(s, chunk, with_state):
     np.testing.assert_allclose(_np(st), _np(st_ref), atol=2e-5, rtol=2e-5)
 
 
-def _split_scan_bwd(xbar, log_da, bmat, cmat, dy, dstate, *, chunk, state0=None):
-    """The card's backward kernel (``csrc/ssd_scan_bwd.cu``), phase by phase, in plain PyTorch (fp32).
+def _split_scan_bwd(xbar, log_da, bmat, cmat, dy, dstate, *, chunk, state0=None, rounded=False):
+    """The card's backward kernel (``csrc/ssd_scan_bwd.cu``), phase by phase, in plain PyTorch.
 
     1. S_loc[c] = X^T diag(e^{A-a}) B and U_loc[c] = dY^T diag(e^{a}) C;
     2. S_in forward over the chunks from state0, dS_out backward from dstate,
@@ -212,6 +215,15 @@ def _split_scan_bwd(xbar, log_da, bmat, cmat, dy, dstate, *, chunk, state0=None)
        da = rowsum G - colsum G + R - T, plus e^A <dS', S> + sum T at the
        chunk's last step, and dlog_da its reverse cumulative sum;
     4. dB and dC summed over heads.
+
+    Without ``rounded`` every value is fp32 (the fp32 CUDA-core kernels).  With
+    ``rounded``, at the bf16 tensor-core kernels' rounding points: the
+    operands B * e^{A-a} and C * e^a of S_loc and U_loc, S_in and dS' of
+    every product, M and E, and X * e^{A-a} and dY * e^a of dB's and dC's
+    inter-chunk terms are rounded to bf16; <dS', S> takes S as a bf16 pair
+    hi + lo; G's sums, R and T come from fp32 values; every sum and the
+    carried states stay fp32, and dx, dB and dC are rounded once to the
+    inputs' dtype.
     """
     b, s, h, p = xbar.shape
     n = bmat.shape[-1]
@@ -224,8 +236,12 @@ def _split_scan_bwd(xbar, log_da, bmat, cmat, dy, dstate, *, chunk, state0=None)
     a = a.reshape(b, nc, chunk, h).cumsum(2)
     a_last = a[:, :, -1]  # (B,nc,H)
     w_out, w_in = torch.exp(a_last[:, :, None] - a), torch.exp(a)  # (B,nc,Q,H)
-    s_loc = torch.einsum("bcjhp,bcjh,bcjn->bchpn", x, w_out, bm)
-    u_loc = torch.einsum("bcihp,bcih,bcin->bchpn", dyp, w_in, cm)
+
+    def rnd(t):
+        return t.bfloat16().float() if rounded else t
+
+    s_loc = torch.einsum("bcjhp,bcjhn->bchpn", x, rnd(w_out[..., None] * bm[:, :, :, None]))
+    u_loc = torch.einsum("bcihp,bcihn->bchpn", dyp, rnd(w_in[..., None] * cm[:, :, :, None]))
     st = torch.zeros((b, h, p, n)) if state0 is None else state0.float()
     s_in = []
     for c in range(nc):
@@ -237,6 +253,7 @@ def _split_scan_bwd(xbar, log_da, bmat, cmat, dy, dstate, *, chunk, state0=None)
         ds_out[c] = g
         g = torch.exp(a_last[:, c])[..., None, None] * g + u_loc[:, c]
     s_in, ds_out = torch.stack(s_in, 1), torch.stack(ds_out, 1)  # (B,nc,H,P,N)
+    s_op, ds_op = rnd(s_in), rnd(ds_out)
     idx = torch.arange(chunk)
     lower = idx[:, None] >= idx[None, :]
     at = a.permute(0, 1, 3, 2)  # (B,nc,H,Q)
@@ -244,19 +261,23 @@ def _split_scan_bwd(xbar, log_da, bmat, cmat, dy, dstate, *, chunk, state0=None)
     m = lmat * torch.einsum("bcin,bcjn->bcij", cm, bm)[:, :, None]
     dx_t_x = torch.einsum("bcihp,bcjhp->bchij", dyp, x)
     e, gm = lmat * dx_t_x, m * dx_t_x
-    dx_inter = w_out[..., None] * torch.einsum("bcjn,bchpn->bcjhp", bm, ds_out)
-    dx = torch.einsum("bchij,bcihp->bcjhp", m, dyp) + dx_inter
-    db = (torch.einsum("bchij,bcin->bchjn", e, cm)
-          + w_out.permute(0, 1, 3, 2)[..., None] * torch.einsum("bcjhp,bchpn->bchjn", x, ds_out))
-    dc_inter = w_in.permute(0, 1, 3, 2)[..., None] * torch.einsum("bcihp,bchpn->bchin", dyp, s_in)
-    dc = torch.einsum("bchij,bcjn->bchin", e, bm) + dc_inter
-    r = torch.einsum("bchin,bcin->bchi", dc_inter, cm)
+    dx_inter = w_out[..., None] * torch.einsum("bcjn,bchpn->bcjhp", bm, ds_op)
+    dx = torch.einsum("bchij,bcihp->bcjhp", rnd(m), dyp) + dx_inter
+    x_out = rnd(w_out.permute(0, 1, 3, 2)[..., None] * x.permute(0, 1, 3, 2, 4))  # (B,nc,H,Q,P)
+    db = torch.einsum("bchij,bcin->bchjn", rnd(e), cm) + torch.einsum("bchjp,bchpn->bchjn", x_out, ds_op)
+    dy_in = rnd(w_in.permute(0, 1, 3, 2)[..., None] * dyp.permute(0, 1, 3, 2, 4))
+    dc = torch.einsum("bchij,bcjn->bchin", rnd(e), bm) + torch.einsum("bchip,bchpn->bchin", dy_in, s_op)
+    r = w_in.permute(0, 1, 3, 2) * torch.einsum("bcihp,bcin,bchpn->bchi", dyp, cm, s_op)
     t = torch.einsum("bcjhp,bcjhp->bchj", x, dx_inter)
+    s_dot = s_in
+    if rounded:  # S as a bf16 pair hi + lo
+        s_dot = rnd(s_in) + rnd(s_in - rnd(s_in))
     da = gm.sum(-1) - gm.sum(-2) + r - t
-    da[..., -1] += torch.exp(a_last) * (ds_out * s_in).sum((-1, -2)) + t.sum(-1)
+    da[..., -1] += torch.exp(a_last) * (ds_out * s_dot).sum((-1, -2)) + t.sum(-1)
     dla = da.flip(-1).cumsum(-1).flip(-1).permute(0, 1, 3, 2).reshape(b, nc * chunk, h)
-    return (dx.reshape(b, nc * chunk, h, p)[:, :s], dla[:, :s], db.sum(2).reshape(b, nc * chunk, n)[:, :s],
-            dc.sum(2).reshape(b, nc * chunk, n)[:, :s], g)
+    dx = dx.reshape(b, nc * chunk, h, p)[:, :s]
+    db, dc = (v.sum(2).reshape(b, nc * chunk, n)[:, :s] for v in (db, dc))
+    return dx.to(xbar.dtype), dla[:, :s], db.to(bmat.dtype), dc.to(cmat.dtype), g
 
 
 @pytest.mark.parametrize("s", [300, 128])  # ragged; one chunk
@@ -293,6 +314,33 @@ def test_bf16_split_rounding_matches_reference_kernels(b, s, h, p, n):
     np.testing.assert_allclose(_np(y), _np(y_ref), **bar)
     _, st_ref = ref.ssd_scan_ref(*tin[:4], chunk=128, state0=tin[4])
     np.testing.assert_allclose(_np(st), _np(st_ref), **bar)
+
+
+@pytest.mark.parametrize("b,s,h,p,n,with_state", [(1, 300, 8, 64, 128, False), (2, 512, 4, 64, 128, True)])
+def test_bf16_backward_split_rounding_meets_the_bf16_bar(b, s, h, p, n, with_state):
+    """The bf16 backward kernel's rounding (``_split_scan_bwd(rounded=True)``) keeps every gradient
+    within the kernel's bf16 bar, atol 2e-2 x max|g| and rtol 5e-2 (``chip_smoke.py``'s
+    ``SSD_BWD_TOL``), of autograd of the plain scan (``ssd_scan_bwd_ref``) and of ``jax.grad`` of
+    the reference's XLA twin ``ssd_chunked``, on the same bf16 inputs widened to fp32."""
+    _, tin = _scan_inputs(7, b, s, h, p, n, "bfloat16", state=True)
+    rng = np.random.default_rng(9)
+    dy = torch.from_numpy(rng.standard_normal((b, s, h, p)).astype(np.float32)).bfloat16()
+    dstate = torch.from_numpy(rng.standard_normal((b, h, p, n)).astype(np.float32) * with_state)
+    state0 = tin[4] if with_state else None
+    got = _split_scan_bwd(*tin[:4], dy, dstate, chunk=128, state0=state0, rounded=True)
+    assert [g.dtype for g in got] == [torch.bfloat16, torch.float32, torch.bfloat16, torch.bfloat16, torch.float32]
+    want = ref.ssd_scan_bwd_ref(*tin[:4], dy, dstate, chunk=128, state0=state0)
+    nargs = 5 if with_state else 4
+    dy32, ds32 = jnp.asarray(_np(dy)), jnp.asarray(_np(dstate))
+
+    def jloss(*args):
+        y, st = JS.ssd_chunked(*args[:4], 128, args[4] if with_state else None)
+        return jnp.sum(y * dy32) + jnp.sum(st * ds32)
+
+    jgrads = jax.grad(jloss, argnums=tuple(range(nargs)))(*[jnp.asarray(_np(t)) for t in tin[:nargs]])
+    for name, g, w, jg in zip(("dx", "dlog_da", "dB", "dC", "dstate0"), got, want, jgrads):
+        for other in (_np(w), _np(jg)):
+            np.testing.assert_allclose(_np(g), other, rtol=5e-2, atol=2e-2 * float(np.abs(other).max()), err_msg=name)
 
 
 @pytest.mark.parametrize("with_state", [False, True])
