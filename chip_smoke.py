@@ -174,7 +174,19 @@ Phases, each failing loudly (an exception or a non-zero exit):
    and kernels (torch.profiler), launches per step, the losses and
    ``phase_seconds``; then the scan's forward and backward kernels are timed
    at the training shape beside their plain versions (CUDA events) and
-   bounds;
+   bounds; the resumed run's parameters wait on the host, so the
+   uninterrupted run's peak is its own;
+9. the dry run (after 8; ``dryrun_phase``): (a) the production cells of
+   ``DRYRUN_CELLS``, each one full-depth step of ``repro_torch.launch.dryrun``
+   as rank 0 of a fake process group of 256 (512) ranks over a ``"cuda"``
+   mesh, on fake CUDA tensors (the kernels' fake implementations), printing
+   per-rank argument and peak bytes, FLOPs, collective bytes by kind, the
+   H100 roofline terms and the bottleneck, predictions for H100s; (b) the
+   grounding cell, mamba2-780m at phase 8's shape on a 1 x 1 mesh, its
+   predicted peak within ``DRYRUN_PEAK_TOL`` of phase 8's measured peak, its
+   roofline step not above phase 8's median step, its FLOPs within
+   ``DRYRUN_FLOP_RATIO`` of ``model_flops``; (c) no kernel launches; (d)
+   within ``DRYRUN_SECONDS``;
 7. the script's total seconds, a ``{"lint": ...}`` line, a ``{"slice": ...}``
    line per model (with its ``decode_graph`` and its seconds), a
    ``{"kernels": [...]}`` line (``launches`` sums ``launches_by_slice``, one
@@ -190,7 +202,9 @@ Phases, each failing loudly (an exception or a non-zero exit):
    training run's launches and times, under ``"train mamba2-780m"``, and
    ``ssd_scan_bwd`` is timed at the training shape, its plain version by CUDA
    events, with its split among its kernels and its scratch bytes), a ``{"train": ...}`` line per model and a
-   ``{"train_reduced": ...}`` line (phase 8), an ``{"estimation": ...}`` line,
+   ``{"train_reduced": ...}`` line (phase 8), a ``{"dryrun": ...}`` line per
+   cell and a ``{"dryrun_grounding": ...}`` line (phase 9), an
+   ``{"estimation": ...}`` line,
    then the result line, last:
    ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
 """
@@ -425,36 +439,23 @@ def _bound(nbytes: float, flops: float, dtype) -> tuple[float, str]:
 
 
 def flash_bound_ms(q, k, causal: bool, q_offset: int = 0) -> tuple[float, str]:
-    """Least time for the card: bytes of q, k, v, o once over HBM vs this run's FLOPs."""
+    """Least time for the card: bytes of q, k, v, o once over HBM vs this run's
+    FLOPs (``repro_torch.kernels.costs.flash_cost``, the kernel's FLOP formula)."""
+    from repro_torch.kernels import costs
+
     b, sq, h, d = q.shape
-    skv = k.shape[1]
-    nbytes = (2 * q.numel() + 2 * k.numel()) * q.element_size()
-    if causal:
-        keys = sum(min(max(q_offset + i + 1, 0), skv) for i in range(sq))
-    else:
-        keys = sq * skv
-    flops = 4.0 * b * h * d * keys  # QK^T and PV, 2 FLOPs per multiply-add
-    return _bound(nbytes, flops, q.dtype)
+    return _bound(*costs.flash_cost(b, sq, k.shape[1], h, k.shape[2], d, q.element_size(), causal, q_offset),
+                  q.dtype)
 
 
 def ssd_bound_ms(x, log_da, bmat, state0, chunk: int) -> tuple[float, str]:
-    """Least time for the card: x, log_da, B, C, state0 read and y, state written once vs the FLOPs.
+    """Least time for the card: x, log_da, B, C, state0 read and y, state
+    written once vs the FLOPs (``repro_torch.kernels.costs.ssd_cost``)."""
+    from repro_torch.kernels import costs
 
-    FLOPs per (batch row, head, chunk of Q steps): C B^T and W x over the
-    lower triangle (Q(Q+1)/2 pairs, 2N + 2P), C S^T and the state update
-    (4QNP).  A ragged last chunk counts its true length.
-    """
     b, s, h, p = x.shape
-    n = bmat.shape[-1]
-    state_bytes = b * h * p * n * 4
-    nbytes = (2 * x.numel() * x.element_size() + log_da.numel() * 4
-              + 2 * bmat.numel() * bmat.element_size()
-              + state_bytes * (2 if state0 is not None else 1))
-    flops = 0.0
-    for c0 in range(0, s, chunk):
-        q = min(chunk, s - c0)
-        flops += b * h * (q * (q + 1) / 2 * 2 * (n + p) + 4 * q * n * p)
-    return _bound(nbytes, flops, x.dtype)
+    return _bound(*costs.ssd_cost(b, s, h, p, bmat.shape[-1], x.element_size(), chunk, state0 is not None),
+                  x.dtype)
 
 
 def check_flash() -> dict:
@@ -975,8 +976,8 @@ def moe_recorded(record: list):
         record.append({"top_i": out[1], "aux": out[2]})
         return out
 
-    def recording_dispatch(xf, top_i, n_exp, cap):
-        out = dispatch(xf, top_i, n_exp, cap)
+    def recording_dispatch(xf, top_i, n_exp, cap, *args):
+        out = dispatch(xf, top_i, n_exp, cap, *args)
         record[-1].update(keep=out[2], capacity=cap)
         return out
 
@@ -1687,28 +1688,13 @@ def time_ssd(arch: str) -> dict:
 
 
 def ssd_bwd_bound_ms(x, log_da, bmat, state0, dstate, chunk: int) -> tuple[float, str]:
-    """Least time for the card for the scan's gradient: x, log_da, B, C, dy (and
-    state0, d(final state)) read and dx, dlog_da, dB, dC (and dstate0) written
-    once, against the products it needs.
+    """Least time for the card for the scan's gradient: its inputs read and
+    gradients written once vs its products (``repro_torch.kernels.costs.ssd_bwd_cost``)."""
+    from repro_torch.kernels import costs
 
-    FLOPs per (batch row, chunk of q steps): C B^T over the lower triangle
-    (q(q+1)/2 pairs, 2N); per head: dY X^T, M^T dY, E^T C and E B over the
-    triangle (4P + 4N a pair) and five (q, P) x (P, N)-sized state products
-    (the chunk's local state, its local dS, and the inter-chunk terms of dx,
-    dB and dC: 10 qNP).
-    """
     b, s, h, p = x.shape
-    n = bmat.shape[-1]
-    state_bytes = b * h * p * n * 4
-    nbytes = (3 * x.numel() * x.element_size() + 2 * log_da.numel() * 4
-              + 4 * bmat.numel() * bmat.element_size()
-              + state_bytes * (2 * (state0 is not None) + (dstate is not None)))
-    flops = 0.0
-    for c0 in range(0, s, chunk):
-        q = min(chunk, s - c0)
-        tri = q * (q + 1) / 2
-        flops += b * tri * 2 * n + b * h * (tri * (4 * p + 4 * n) + 10 * q * n * p)
-    return _bound(nbytes, flops, x.dtype)
+    return _bound(*costs.ssd_bwd_cost(b, s, h, p, bmat.shape[-1], x.element_size(), chunk,
+                                      state0 is not None, dstate is not None), x.dtype)
 
 
 def time_ssd_train() -> dict:
@@ -2532,7 +2518,8 @@ def train_mamba2(smi: str) -> dict:
         resumed = trainer(resume_dir, TRAIN_CKPT_EVERY, _event_hook([]))
         resumed.run()
         resumed_s = time.perf_counter() - t0
-        resumed_params, resumed_history = resumed.params, resumed.history
+        # on the host, so the uninterrupted run's peak below is its own
+        resumed_params, resumed_history = [t.cpu() for t in tree_leaves(resumed.params)], resumed.history
         del resumed
         torch.cuda.empty_cache()
 
@@ -2549,7 +2536,7 @@ def train_mamba2(smi: str) -> dict:
     losses = [h["loss"] for h in straight.history]
     resumed_losses = [h["loss"] for h in resumed_history]
     loss_gap = max(abs(a - b) for a, b in zip(first_losses + resumed_losses, losses[:len(first_losses)] + losses[latest:]))
-    param_gap = max((a - b).abs().max().item() for a, b in zip(tree_leaves(resumed_params),
+    param_gap = max((a - b.cpu()).abs().max().item() for a, b in zip(resumed_params,
                                                                tree_leaves(straight.params)))
     del resumed_params
     want = {"ssd_scan": 2 * cfg.n_layers * TRAIN_STEPS, "ssd_scan_bwd": cfg.n_layers * TRAIN_STEPS,
@@ -2611,6 +2598,102 @@ def train_qwen2(smi: str) -> dict:
     if not ok:
         raise AssertionError(f"qwen2-1.5b's training: losses {losses}, kernel launches {counts}")
     return line
+
+
+#: phase 9(a): production cells of the dry run, on fake ranks of the production meshes
+DRYRUN_CELLS = (
+    ("mamba2-780m", "train_4k", "single"),    # the scan's forward and backward, heads 48 over tp 16
+    ("granite-20b", "decode_32k", "single"),  # q_sharded, a sequence-sharded cache, decode_seq_sharded
+    ("olmoe-1b-7b", "prefill_32k", "single"),  # 64 experts, 4 per rank
+    ("zamba2-2.7b", "train_4k", "single"),    # fsdp, the scan and the shared attention
+    ("qwen2-1.5b", "train_4k", "multi"),      # 512 ranks with the pod axis
+)
+#: phase 9(b): the grounding cell's bars against phase 8's measured run
+DRYRUN_PEAK_TOL = 0.15
+DRYRUN_FLOP_RATIO = (1.0, 2.0)
+DRYRUN_SECONDS = 300
+
+
+def dryrun_line(art: dict) -> dict:
+    """The per-rank figures of one dry-run artifact (predictions for H100s)."""
+    r, m = art["roofline"], art["memory_analysis"]
+    return {"cell": f"{art['arch']}__{art['shape']}__{art['mesh']}__base", "chips": art["chips"],
+            "dp": art["dp"], "tp": art["tp"], "fsdp": art["fsdp"],
+            "argument_bytes": m["argument_size_in_bytes"], "peak_bytes": m["peak_bytes"],
+            "fits_80gb": art["fits_80gb"], "flops": art["cost"]["flops"],
+            "collective_bytes": art["collective"]["bytes"], "collective_counts": art["collective"]["counts"],
+            "compute_s": r["compute_s"], "memory_s": r["memory_s"], "collective_s": r["collective_s"],
+            "step_time_s": r["step_time_s"], "bottleneck": r["bottleneck"], "model_flops": r["model_flops"],
+            "trace_s": art["trace_s"]}
+
+
+def dryrun_phase(mamba_train: dict) -> dict:
+    """Phase 9: the dry run on fake CUDA tensors.
+
+    (a) the production cells of ``DRYRUN_CELLS``, each one full-depth step
+    traced as rank 0 of a fake process group of 256 (512) ranks over a
+    ``"cuda"`` mesh: per-rank argument and peak bytes, FLOPs, collective bytes
+    by kind, the H100 roofline terms and the bottleneck (predictions);
+    (b) the grounding cell: mamba2-780m at phase 8's shape (batch 2 x 4,096,
+    fp32 masters, remat "full") on a 1 x 1 mesh, its predicted peak against
+    phase 8's measured ``max_memory_allocated`` (within ``DRYRUN_PEAK_TOL``),
+    its roofline step against phase 8's median step (not above it), its
+    counted FLOPs over ``model_flops`` within ``DRYRUN_FLOP_RATIO``;
+    (c) no kernel launches: a fake tensor computes nothing."""
+    import dataclasses
+
+    from repro_torch import distributed as D
+    from repro_torch.configs import get_config
+    from repro_torch.launch import dryrun as DR
+    from repro_torch.models.config import InputShape
+
+    zero_kernel_counts()
+    out = {"cells": []}
+    for arch, shape, mesh in DRYRUN_CELLS:
+        t0 = time.perf_counter()
+        line = dryrun_line(DR.lower_cell(arch, shape, mesh == "multi", DR.DryrunKnobs(), "cuda"))
+        line["seconds"] = time.perf_counter() - t0
+        log(f"dry run {line['cell']} ({line['chips']} fake ranks, dp {line['dp']} x tp {line['tp']}"
+            f"{', fsdp' if line['fsdp'] else ''}; predictions for H100s, per rank): arguments "
+            f"{line['argument_bytes'] / 2**30:.2f} GiB, peak {line['peak_bytes'] / 2**30:.2f} GiB, "
+            f"{line['flops']:.4g} FLOPs, collectives "
+            + ", ".join(f"{k} {v / 2**30:.3f} GiB x{line['collective_counts'][k]}"
+                        for k, v in line["collective_bytes"].items() if v)
+            + f"; roofline compute {line['compute_s'] * 1e3:.2f} ms, memory {line['memory_s'] * 1e3:.2f} ms, "
+            f"collective {line['collective_s'] * 1e3:.2f} ms: {line['bottleneck']}-bound, step "
+            f"{line['step_time_s'] * 1e3:.2f} ms; traced in {line['seconds']:.1f} s")
+        out["cells"].append(line)
+
+    cfg = get_config("mamba2-780m")
+    shape = InputShape("train_4k", TRAIN_SEQ, TRAIN_BATCH, "train")
+    t0 = time.perf_counter()
+    with DR.fake_world(1, (1, 1), ("data", "model"), "cuda") as mesh:
+        counts = DR.trace_step(cfg, shape, D.for_mesh(mesh), DR.DryrunKnobs(), "cuda")
+    art = DR.artifact("mamba2-780m", "train_2x4096", "1x1", cfg, shape, 1, 1, 1, False, DR.DryrunKnobs(), counts)
+    measured_peak = mamba_train["peak_memory_gib"] * 2**30
+    measured_ms = mamba_train["step_ms_median_after_first"]
+    ratio = art["cost"]["flops"] / art["roofline"]["model_flops"]
+    peak_gap = art["memory_analysis"]["peak_bytes"] / measured_peak - 1
+    ground = {**dryrun_line(art), "seconds": time.perf_counter() - t0,
+              "measured_peak_bytes": measured_peak, "peak_gap": peak_gap,
+              "measured_step_ms": measured_ms, "roofline_step_ms": art["roofline"]["step_time_s"] * 1e3,
+              "flops_over_model_flops": ratio, "flops_by_op": art["flops_by_op"]}
+    ok = (abs(peak_gap) <= DRYRUN_PEAK_TOL and ground["roofline_step_ms"] <= measured_ms
+          and DRYRUN_FLOP_RATIO[0] <= ratio <= DRYRUN_FLOP_RATIO[1])
+    log(f"dry run grounding: mamba2-780m batch {TRAIN_BATCH} x {TRAIN_SEQ} on a 1 x 1 mesh: predicted peak "
+        f"{ground['peak_bytes'] / 2**30:.2f} GiB against phase 8's measured {measured_peak / 2**30:.2f} GiB "
+        f"({peak_gap:+.3f}, bar {DRYRUN_PEAK_TOL}); roofline step {ground['roofline_step_ms']:.2f} ms "
+        f"({ground['bottleneck']}) against the measured median {measured_ms:.1f} ms; counted FLOPs "
+        f"{ground['flops']:.4g} = {ratio:.3f} x model_flops {ground['model_flops']:.4g} (bar {DRYRUN_FLOP_RATIO}); "
+        f"arguments {ground['argument_bytes'] / 2**30:.2f} GiB; traced in {ground['seconds']:.1f} s "
+        f"{'ok' if ok else 'FAIL'}")
+    out["grounding"] = ground
+    out["kernel_launches"] = kernel_counts()
+    if any(out["kernel_launches"].values()):
+        raise AssertionError(f"the dry run launched kernels: {out['kernel_launches']}")
+    if not ok:
+        raise AssertionError("the dry run's grounding cell missed its bars")
+    return out
 
 
 def run_lint() -> dict:
@@ -2743,6 +2826,14 @@ def main() -> int:
         log(f"train {line['arch']}: {line['phase_seconds']:.1f} s")
         train_lines.append(line)
     mamba_train = train_lines[0]
+
+    # ---- 9. the dry run: production cells on fake ranks, grounded on phase 8's mamba2 step
+    t0 = time.perf_counter()
+    dryrun = dryrun_phase(mamba_train)
+    dryrun["phase_seconds"] = time.perf_counter() - t0
+    log(f"phase 9: {dryrun['phase_seconds']:.1f} s (limit {DRYRUN_SECONDS} s)")
+    if dryrun["phase_seconds"] > DRYRUN_SECONDS:
+        raise AssertionError(f"phase 9 took {dryrun['phase_seconds']:.1f} s, over {DRYRUN_SECONDS} s")
     train_launches = {name: round(n * mamba_train["steps"]) for name, n in mamba_train["launches_per_step"].items()}
     launches["ssd_scan"]["train mamba2-780m"] = train_launches["ssd_scan"]
     timings["ssd_scan"]["train mamba2-780m"] = train_timing["ssd_scan"]
@@ -2791,6 +2882,10 @@ def main() -> int:
     for line in train_lines:
         log(json.dumps({"train": line}))
     log(json.dumps({"train_reduced": train["reduced"]}))
+    for line in dryrun["cells"]:
+        log(json.dumps({"dryrun": line}))
+    log(json.dumps({"dryrun_grounding": {**dryrun["grounding"], "phase_seconds": dryrun["phase_seconds"],
+                                          "kernel_launches": dryrun["kernel_launches"]}}))
     log(json.dumps({"kernels": kernels}))
     log(json.dumps({"estimation": estimation}))
     log(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind, "count": count}}))

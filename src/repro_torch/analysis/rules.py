@@ -137,6 +137,9 @@ _TORCH_HEAVY_PREFIXES = (
     "repro_torch.kernels.ops",
     "repro_torch.kernels.ref",
     "repro_torch.train",
+    "repro_torch.distributed",
+    "repro_torch.launch.mesh",
+    "repro_torch.launch.train",
 )
 
 

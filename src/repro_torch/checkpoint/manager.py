@@ -17,6 +17,13 @@ Guarantees:
 On a multi-host deployment the gather-to-host becomes a per-host shard dump
 keyed by process index; the single-process container exercises the same code
 path with process count 1 (see DESIGN.md §5).
+
+In the port a DTensor leaf (a sharded run) is gathered to its full value
+(``full_tensor``, on every rank), rank 0 writes, and every rank waits at a
+barrier; the stored arrays and manifest are those of an unsharded run.
+``restore(shardings=...)`` places each leaf with ``distribute_tensor`` onto
+the mesh of its ``NamedSharding`` -- any mesh, so a run saved on one mesh
+resumes on another.
 """
 
 from __future__ import annotations
@@ -47,6 +54,33 @@ def journal_path(directory: str, name: str = "measurements") -> str:
 _BF16_WORDS = np.dtype("V2")
 
 
+def _is_dtensor(v: Any) -> bool:
+    """A DTensor, told without importing torch."""
+    if sys.modules.get("torch.distributed.tensor") is None:
+        return False
+    from torch.distributed.tensor import DTensor
+
+    return isinstance(v, DTensor)
+
+
+def _rank() -> int:
+    """This process's rank in the default process group (0 without one)."""
+    if sys.modules.get("torch.distributed") is None:
+        return 0
+    import torch.distributed as dist
+
+    return dist.get_rank() if dist.is_available() and dist.is_initialized() else 0
+
+
+def _barrier() -> None:
+    if sys.modules.get("torch.distributed") is None:
+        return
+    import torch.distributed as dist
+
+    if dist.is_available() and dist.is_initialized():
+        dist.barrier()
+
+
 def _is_bf16(v: Any) -> bool:
     return _is_tensor(v) and str(v.dtype) == "torch.bfloat16"
 
@@ -64,6 +98,8 @@ def _to_host(v: Any) -> np.ndarray:
     if _is_tensor(v):
         import torch
 
+        if _is_dtensor(v):
+            v = v.full_tensor()
         v = v.detach().cpu()
         if v.dtype == torch.bfloat16:
             return v.contiguous().view(torch.int16).numpy().view(_BF16_WORDS)
@@ -114,9 +150,14 @@ class CheckpointManager:
 
     # ------------------------------------------------------------------ save
     def save(self, step: int, tree: Any) -> str:
+        """Write ``tree`` as step ``step``; every rank of a sharded run calls it
+        (the gather is collective), rank 0 writes, all return after it has."""
         flat = _flatten(tree)
         arrays = {k: _to_host(v) for k, v in flat.items()}
         final = os.path.join(self.directory, f"step_{step:09d}")
+        if _rank() != 0:
+            _barrier()
+            return final
         tmp = final + ".tmp"
         if os.path.exists(tmp):
             shutil.rmtree(tmp)
@@ -134,6 +175,7 @@ class CheckpointManager:
             shutil.rmtree(final)
         os.replace(tmp, final)  # atomic publish
         self._gc()
+        _barrier()
         return final
 
     def _gc(self) -> None:
@@ -161,15 +203,11 @@ class CheckpointManager:
         (same bits, the skeleton's device); every other leaf as the stored
         numpy array, as in the reference.
 
-        ``shardings``: the elastic-resharding path, which places arrays
-        onto the current mesh; it is not ported yet (ROADMAP.md, queue 1:
-        sharding) and raises ``NotImplementedError``.
+        ``shardings``: optional tree of ``repro_torch.distributed.NamedSharding``
+        (same structure; None for a leaf left as above): each array is
+        placed with ``distribute_tensor`` onto its sharding's mesh, in the
+        skeleton leaf's dtype -- this is the elastic-resharding path.
         """
-        if shardings is not None:
-            raise NotImplementedError(
-                "restoring onto a mesh (shardings=) is not ported yet; see "
-                "ROADMAP.md, queue 1 (sharding and the dry run)"
-            )
         if step is None:
             step = self.latest_step()
         if step is None:
@@ -177,4 +215,24 @@ class CheckpointManager:
         path = os.path.join(self.directory, f"step_{step:09d}")
         with np.load(os.path.join(path, "arrays.npz")) as z:
             flat = {k: z[k] for k in z.files}
-        return _unflatten(flat, skeleton), step
+        tree = _unflatten(flat, skeleton)
+        if shardings is not None:
+            tree = _place(tree, shardings, skeleton)
+        return tree, step
+
+
+def _place(tree: Any, shardings: Any, skeleton: Any) -> Any:
+    """Each restored leaf distributed by its sharding (a leaf with None stays as it is)."""
+    if isinstance(tree, dict):
+        return {k: _place(v, shardings[k], skeleton[k]) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)) and not hasattr(shardings, "placements"):
+        return type(tree)(_place(v, s, k) for v, s, k in zip(tree, shardings, skeleton))
+    if shardings is None:
+        return tree
+    import torch
+    from torch.distributed.tensor import distribute_tensor
+
+    t = tree if isinstance(tree, torch.Tensor) else torch.from_numpy(np.asarray(tree))
+    if _is_tensor(skeleton):
+        t = t.to(skeleton.dtype)
+    return distribute_tensor(t, shardings.mesh, shardings.placements)

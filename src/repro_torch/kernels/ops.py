@@ -10,6 +10,20 @@ A CUDA-graph replay (``generate``'s decode step) goes through no wrapper, so
 no counter counts it; the decode step launches neither kernel anyway (one
 query takes ``full_attention``, and mamba2 decodes by its recurrence).
 
+Each launch is also a ``torch.library.custom_op`` (``repro_torch::flash_attention``,
+``repro_torch::ssd_scan_fwd``, ``repro_torch::ssd_scan_bwd``) whose body is
+the ctypes launch above, so the dispatcher can trace it: each has a fake
+implementation (shapes only; a fake tensor computes nothing and reaches no
+plain version), a FLOP formula from ``costs.py`` (``torch.utils.flop_counter``
+and the dry run count the work the bounds count) and ``SCRATCH_BYTES``, the
+device scratch its kernel allocates beside its outputs.  A wrapper goes
+through the op only when something watches the dispatcher (``_dispatched``:
+a dispatch mode such as fake tensors or FLOP counting, or a tensor subclass
+such as a DTensor); plain CUDA tensors call the launch directly, as before
+the ops existed, and skip the op's Python dispatch.  Under sharding
+rules the models call them through ``distributed.local_call`` on each
+rank's heads (and batch), so the ops themselves see local tensors.
+
 ``ops.py`` of the reference pads head dims and state widths to 128 lanes and
 sequences to block or chunk multiples for the TPU; the CUDA kernels mask the
 ragged edge themselves, so nothing is padded here.
@@ -21,12 +35,21 @@ import ctypes
 
 import torch
 
-from repro_torch.kernels import build
+from torch.utils.flop_counter import register_flop_formula
+
+from repro_torch.kernels import build, costs
 from repro_torch.kernels.ref import flash_attention_ref, ssd_scan_bwd_ref, ssd_scan_ref
 
 _FLASH_DTYPES = (torch.float32, torch.bfloat16)
 _SSD_DTYPES = (torch.float32, torch.bfloat16)
 _SSD_CHUNKS = (64, 128)
+
+
+def _dispatched(*tensors) -> bool:
+    """Whether a launch must go through its custom op: a dispatch mode is on
+    (fake tensors, FLOP counting) or an input is a tensor subclass."""
+    return torch._C._len_torch_dispatch_stack() > 0 or any(
+        t is not None and type(t) is not torch.Tensor for t in tensors)
 
 
 def _flash_lib() -> ctypes.CDLL:
@@ -87,6 +110,20 @@ def flash_attention(
         raise ValueError("flash_attention needs contiguous q/k/v")
     if sq == 0 or skv == 0 or b == 0:
         raise ValueError(f"empty attention: q {tuple(q.shape)}, k {tuple(k.shape)}")
+    if _dispatched(q, k, v):
+        return torch.ops.repro_torch.flash_attention(q, k, v, causal, int(q_offset))
+    return _flash_launch(q, k, v, causal, int(q_offset))
+
+
+@torch.library.custom_op("repro_torch::flash_attention", mutates_args=())
+def _flash_op(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, causal: bool, q_offset: int) -> torch.Tensor:
+    return _flash_launch(q, k, v, causal, q_offset)
+
+
+def _flash_launch(q, k, v, causal: bool, q_offset: int) -> torch.Tensor:
+    """The kernel's launch on checked CUDA tensors (``flash_attention``)."""
+    b, sq, h, d = q.shape
+    skv, kvh = k.shape[1], k.shape[2]
     o = torch.empty_like(q)
     if q.dtype == torch.bfloat16 and any(t.data_ptr() % 16 for t in (q, k, v, o)):
         raise ValueError("bf16 flash_attention needs q/k/v/o that start on a 16-byte boundary")
@@ -101,6 +138,17 @@ def flash_attention(
         raise RuntimeError(f"flash_attention kernel launch failed with cudaError_t {err}")
     flash_attention.launches += 1
     return o
+
+
+@_flash_op.register_fake
+def _flash_fake(q, k, v, causal, q_offset):
+    return torch.empty_like(q)
+
+
+@register_flop_formula(torch.ops.repro_torch.flash_attention)
+def _flash_flops(q_shape, k_shape, v_shape, causal, q_offset, *args, out_shape=None, **kwargs) -> int:
+    b, sq, h, d = q_shape
+    return int(costs.flash_cost(b, sq, k_shape[1], h, k_shape[2], d, 2, causal, q_offset)[1])
 
 
 flash_attention.launches = 0
@@ -211,6 +259,19 @@ def _ssd_scan_fwd(xbar, log_da, bmat, cmat, chunk, state0):
     tensors = [xbar, log_da, bmat, cmat] + ([state0] if state0 is not None else [])
     if not all(t.is_contiguous() for t in tensors):
         raise ValueError("ssd_scan needs contiguous inputs")
+    if _dispatched(*tensors):
+        return torch.ops.repro_torch.ssd_scan_fwd(xbar, log_da, bmat, cmat, state0, chunk)
+    return _ssd_fwd_launch(xbar, log_da, bmat, cmat, state0, chunk)
+
+
+@torch.library.custom_op("repro_torch::ssd_scan_fwd", mutates_args=())
+def _ssd_fwd_op(xbar: torch.Tensor, log_da: torch.Tensor, bmat: torch.Tensor, cmat: torch.Tensor,
+                state0: torch.Tensor | None, chunk: int) -> tuple[torch.Tensor, torch.Tensor]:
+    return _ssd_fwd_launch(xbar, log_da, bmat, cmat, state0, chunk)
+
+
+def _ssd_fwd_launch(xbar, log_da, bmat, cmat, state0, chunk: int) -> tuple[torch.Tensor, torch.Tensor]:
+    """The scan kernels' launch on checked CUDA tensors (``ssd_scan``)."""
     b, s, h, p = xbar.shape
     n = bmat.shape[-1]
     y = torch.empty_like(xbar)
@@ -234,6 +295,18 @@ def _ssd_scan_fwd(xbar, log_da, bmat, cmat, chunk, state0):
         raise RuntimeError(f"ssd_scan kernel launch failed with cudaError_t {err}")
     ssd_scan.launches += 1
     return y, state
+
+
+@_ssd_fwd_op.register_fake
+def _ssd_fwd_fake(xbar, log_da, bmat, cmat, state0, chunk):
+    b, _, h, p = xbar.shape
+    return torch.empty_like(xbar), xbar.new_empty((b, h, p, bmat.shape[-1]), dtype=torch.float32)
+
+
+@register_flop_formula(torch.ops.repro_torch.ssd_scan_fwd)
+def _ssd_fwd_flops(x_shape, la_shape, b_shape, c_shape, s0_shape, chunk, *args, out_shape=None, **kwargs) -> int:
+    b, s, h, p = x_shape
+    return int(costs.ssd_cost(b, s, h, p, b_shape[-1], 2, chunk, s0_shape is not None)[1])
 
 
 ssd_scan.launches = 0
@@ -287,6 +360,22 @@ def ssd_scan_bwd(
     tensors = [t for t in (xbar, log_da, bmat, cmat, state0, dy, dstate) if t is not None]
     if not all(t.is_contiguous() for t in tensors):
         raise ValueError("ssd_scan_bwd needs contiguous inputs")
+    if _dispatched(*tensors):
+        return torch.ops.repro_torch.ssd_scan_bwd(xbar, log_da, bmat, cmat, state0, dy, dstate, chunk)
+    return _ssd_bwd_launch(xbar, log_da, bmat, cmat, state0, dy, dstate, chunk)
+
+
+@torch.library.custom_op("repro_torch::ssd_scan_bwd", mutates_args=())
+def _ssd_bwd_op(xbar: torch.Tensor, log_da: torch.Tensor, bmat: torch.Tensor, cmat: torch.Tensor,
+                state0: torch.Tensor | None, dy: torch.Tensor, dstate: torch.Tensor | None,
+                chunk: int) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor]:
+    return _ssd_bwd_launch(xbar, log_da, bmat, cmat, state0, dy, dstate, chunk)
+
+
+def _ssd_bwd_launch(xbar, log_da, bmat, cmat, state0, dy, dstate, chunk: int):
+    """The backward kernels' launch on checked CUDA tensors (``ssd_scan_bwd``)."""
+    b, s, h, p = xbar.shape
+    n = bmat.shape[-1]
     dx, db, dc = torch.empty_like(xbar), torch.empty_like(bmat), torch.empty_like(cmat)
     dla = torch.empty_like(log_da)
     ds0 = torch.empty((b, h, p, n), dtype=torch.float32, device=xbar.device)
@@ -308,6 +397,38 @@ def ssd_scan_bwd(
         raise RuntimeError(f"ssd_scan_bwd kernel launch failed with cudaError_t {err}")
     ssd_scan_bwd.launches += 1
     return dx, dla, db, dc, ds0
+
+
+@_ssd_bwd_op.register_fake
+def _ssd_bwd_fake(xbar, log_da, bmat, cmat, state0, dy, dstate, chunk):
+    b, _, h, p = xbar.shape
+    ds0 = xbar.new_empty((b, h, p, bmat.shape[-1]), dtype=torch.float32)
+    return torch.empty_like(xbar), torch.empty_like(log_da), torch.empty_like(bmat), torch.empty_like(cmat), ds0
+
+
+@register_flop_formula(torch.ops.repro_torch.ssd_scan_bwd)
+def _ssd_bwd_flops(x_shape, la_shape, b_shape, c_shape, s0_shape, dy_shape, ds_shape, chunk, *args,
+                   out_shape=None, **kwargs) -> int:
+    b, s, h, p = x_shape
+    return int(costs.ssd_bwd_cost(b, s, h, p, b_shape[-1], 2, chunk, s0_shape is not None,
+                                  ds_shape is not None)[1])
+
+
+def _scan_scratch(lib_fn, xbar, bmat, chunk) -> int:
+    b, s, h, p = xbar.shape
+    return int(lib_fn(b, s, h, p, bmat.shape[-1], chunk, int(xbar.dtype == torch.bfloat16)))
+
+
+#: op -> bytes of device scratch its kernel allocates for these arguments
+#: (the C side's own layout; reads the built library, on the card)
+SCRATCH_BYTES = {
+    torch.ops.repro_torch.ssd_scan_fwd.default:
+        lambda xbar, log_da, bmat, cmat, state0, chunk: _scan_scratch(
+            _ssd_lib().repro_ssd_scan_scratch_bytes, xbar, bmat, chunk),
+    torch.ops.repro_torch.ssd_scan_bwd.default:
+        lambda xbar, log_da, bmat, cmat, state0, dy, dstate, chunk: _scan_scratch(
+            _ssd_bwd_lib().repro_ssd_scan_bwd_scratch_bytes, xbar, bmat, chunk),
+}
 
 
 ssd_scan_bwd.launches = 0

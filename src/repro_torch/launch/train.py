@@ -10,8 +10,12 @@ parameters, gradients and AdamW moments).
   PYTHONPATH=src python -m repro_torch.launch.train --arch mamba2-780m \\
       --steps 8 --batch 2 --seq 4096 --ckpt checkpoints/mamba2
 
-``--production-mesh`` and ``--multi-pod`` (sharding over many devices) are
-not ported: they raise, naming ROADMAP.md queue 1, item 5.
+``--production-mesh`` (``--multi-pod``) shards the run over the (16, 16)
+((2, 16, 16)) production mesh of ``launch.mesh``: every process of a
+256- (512-) rank world, started by torchrun across the nodes, runs this
+entry point; on a world of another size it raises, naming the size it
+needs.  Without them the trainer gets ``single_device_rules()``, as the
+reference's does: on one device every sharding annotation is the identity.
 """
 
 from __future__ import annotations
@@ -22,6 +26,7 @@ import os
 import tempfile
 
 from repro_torch.configs import get_config
+from repro_torch.distributed import for_mesh, single_device_rules
 from repro_torch.models.config import InputShape, reduced
 from repro_torch.optim.adamw import AdamWConfig
 from repro_torch.train.trainer import Trainer, TrainerConfig
@@ -44,10 +49,12 @@ def main(argv: list[str] | None = None) -> None:
     args = ap.parse_args(argv)
 
     if args.production_mesh or args.multi_pod:
-        raise NotImplementedError(
-            "--production-mesh / --multi-pod shard over many devices, which is not ported yet; "
-            "see ROADMAP.md, queue 1, item 5"
-        )
+        from repro_torch.launch.mesh import make_production_mesh
+
+        rules = for_mesh(make_production_mesh(multi_pod=args.multi_pod,
+                                              device_type="cpu" if args.device == "cpu" else "cuda"))
+    else:
+        rules = single_device_rules()
     logging.basicConfig(level=logging.INFO, format="%(asctime)s %(name)s %(message)s")
     cfg = get_config(args.arch)
     if args.reduced:
@@ -59,7 +66,7 @@ def main(argv: list[str] | None = None) -> None:
         checkpoint_dir=args.ckpt,
         n_microbatches=args.microbatches,
     )
-    trainer = Trainer(cfg, shape, None, tcfg, AdamWConfig(lr=args.lr, total_steps=args.steps),
+    trainer = Trainer(cfg, shape, rules, tcfg, AdamWConfig(lr=args.lr, total_steps=args.steps),
                       device=args.device)
     metrics = trainer.run()
     print("final:", metrics)

@@ -23,6 +23,10 @@ only on the device, so a CUDA graph can capture the step and replay it while
   D).  The prefill computes ``enc_kv`` from the frames (``generate`` drops the
   zero one first, as the reference does) and the returned cache keeps it, so
   a captured decode step reads the same buffers on every replay.
+
+The reference's ``init_cache(..., concrete=False)`` (shape stand-ins for
+the dry run) is ``init_cache`` called under ``FakeTensorMode``; its leaves'
+specs come from ``launch.shardings.cache_specs``.
 """
 
 from __future__ import annotations
@@ -32,6 +36,13 @@ import torch
 from repro_torch.models.config import ModelConfig
 
 CACHE_DTYPE = torch.bfloat16
+
+
+def _kv_heads_spec(cfg: ModelConfig, rules) -> str | None:
+    """"tp" where the rules' tp size divides the kv heads, else None (no rules: None)."""
+    if rules is None:
+        return None
+    return "tp" if cfg.n_kv_heads % rules.tp_size == 0 else None
 
 
 def _zero_len(device, *shape: int) -> torch.Tensor:

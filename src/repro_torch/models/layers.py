@@ -7,6 +7,18 @@ Numerics follow the reference:
 * norms compute in fp32 and return the input dtype;
 * the residual stream is bf16.
 
+Under sharding rules on a multi-device mesh (``repro_torch.distributed``)
+the same functions take DTensors and run per rank through
+``distributed.local_call``, placed as the reference's annotations
+(``shard``) place them: the products (``local_product``: a weight sharded
+over the dp axes, ``fsdp``, is gathered first, as FSDP does), the norms,
+the whole MLP, the embedding, the head and the cross-entropy
+(vocab-parallel).  Each rank's computation is the single-device one on its
+shards, so the card's routes stay the card's; DTensor only moves data
+between the regions (its own propagation cannot take the products whose
+token dim is sharded under ``seq_parallel``).  With no rules, or one
+device, nothing changes.
+
 For serving the port holds matmul weights and biases in bf16: the reference
 keeps fp32 parameters but casts them to bf16 at every call, so a bf16 copy
 is exactly what each call sees.  Norm scales stay fp32, as the norms read
@@ -21,6 +33,8 @@ import math
 import torch
 import torch.nn.functional as F
 
+from repro_torch import distributed as D
+
 COMPUTE_DTYPE = torch.bfloat16
 
 
@@ -30,18 +44,69 @@ def cast(x: torch.Tensor) -> torch.Tensor:
 
 # ------------------------------------------------------------------ norms
 def rms_norm(x: torch.Tensor, scale: torch.Tensor, eps: float) -> torch.Tensor:
+    if D.distributed_rules() is not None and isinstance(x, D.DTensor):
+        return _local_rms_norm(x, scale, eps)
     xf = x.float()
     var = xf.square().mean(dim=-1, keepdim=True)
     y = xf * torch.rsqrt(var + eps) * scale.float()
     return y.to(x.dtype)
 
 
+def _local_rms_norm(x, scale, eps: float):
+    """``rms_norm`` per rank; over a last dim sharded over tp (the SSM's inner
+    dim) the sum of squares is summed across the ranks first."""
+    mesh = x.device_mesh
+    spec = D.spec_of(x)
+    rows = D.P(*spec[:-1], None)
+    sq = D.local_call(lambda xl: xl.float().square().sum(dim=-1, keepdim=True), [(x, spec)],
+                      [D.with_partial(mesh, rows, x.ndim, D.axes_of(spec[-1]))])
+    sq = D.constrain(sq, rows)
+    n = x.shape[-1]
+
+    def norm(xl, s, sc):
+        return (xl.float() * torch.rsqrt(s / n + eps) * sc.float()).to(xl.dtype)
+
+    return D.local_call(norm, [(x, spec), (sq, rows), (scale, D.P(spec[-1]))], [spec])
+
+
 # ------------------------------------------------------------------ dense
-def dense(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor | None = None) -> torch.Tensor:
-    """bf16 ``x @ w (+ b)``: fp32 accumulation, one rounding to bf16."""
+def _plain_dense(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor | None = None) -> torch.Tensor:
     y = torch.matmul(cast(x), cast(w))
     if b is not None:
         y = y + cast(b)
+    return y
+
+
+def local_product(x: torch.Tensor, w: torch.Tensor, fn=None) -> torch.Tensor:
+    """``fn(x_local, w_local)`` (default the bf16 product) per rank, as GSPMD
+    would place ``x @ w``: x keeps its batch and token sharding, w gives up
+    any dp sharding (fsdp: gathered), its contraction dim's tp sharding
+    shards x's last dim too and leaves a partial sum over tp, its output
+    dim's tp sharding shards the result's."""
+    rules = D.distributed_rules()
+    x = D.replicate(x, rules.mesh)
+    w = D.replicate(w, rules.mesh)
+    xs, ws = D.spec_of(x), D.spec_of(w)
+    used = {a for e in xs[:-1] for a in D.axes_of(e)}
+
+    def keep(entry):
+        kept = tuple(a for a in D.axes_of(entry) if a not in rules.dp_axes and a not in used)
+        return None if not kept else kept[0] if len(kept) == 1 else kept
+
+    k_axis, n_axis = keep(ws[0]), keep(ws[1])
+    x_spec, w_spec = D.P(*xs[:-1], k_axis), D.P(k_axis, n_axis)
+    out = D.with_partial(rules.mesh, D.P(*xs[:-1], n_axis), x.ndim, D.axes_of(k_axis))
+    fn = fn or (lambda xl, wl: torch.matmul(cast(xl), cast(wl)))
+    return D.local_call(fn, [(x, x_spec), (w, w_spec)], [out])
+
+
+def dense(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor | None = None) -> torch.Tensor:
+    """bf16 ``x @ w (+ b)``: fp32 accumulation, one rounding to bf16."""
+    if D.distributed_rules() is None or not isinstance(x, D.DTensor):
+        return _plain_dense(x, w, b)
+    y = local_product(x, w)
+    if b is not None:
+        y = D.constrain(y, D.spec_of(y)) + cast(b)  # a partial sum is taken before the bias
     return y
 
 
@@ -132,18 +197,63 @@ def gelu_tanh(x: torch.Tensor) -> torch.Tensor:
     return x * cdf
 
 
-def mlp_block(x: torch.Tensor, p: dict, kind: str) -> torch.Tensor:
-    """Gated (swiglu) or plain gelu MLP."""
+def _mlp(x, w_in, w_gate, b_in, w_out, kind: str):
+    """The MLP without its output bias: (B, S, D) -> (B, S, D) bf16."""
     if kind == "swiglu":
-        h = dense(x, p["w_in"]) * F.silu(dense(x, p["w_gate"]))
+        h = _plain_dense(x, w_in) * F.silu(_plain_dense(x, w_gate))
     else:
-        h = gelu_tanh(dense(x, p["w_in"], p.get("b_in")))
-    return dense(h, p["w_out"], p.get("b_out"))
+        h = gelu_tanh(_plain_dense(x, w_in, b_in))
+    return torch.matmul(cast(h), cast(w_out))
+
+
+def mlp_block(x: torch.Tensor, p: dict, kind: str) -> torch.Tensor:
+    """Gated (swiglu) or plain gelu MLP.
+
+    Under distributed rules it runs per rank (the hidden dim over tp, the
+    reference's ``shard(h, "batch", "seq", "tp")``), its output a partial sum
+    over tp taken by ``shard(y, "batch", "seq", None)`` before the bias.
+    """
+    weights = (p["w_in"], p.get("w_gate"), p.get("b_in"), p["w_out"])
+    rules = D.distributed_rules()
+    if rules is None or not isinstance(x, D.DTensor):
+        y = _mlp(x, *weights, kind=kind)
+    else:
+        x_spec = D.sanitize_spec(rules, rules.spec("batch", "seq", None), x.shape)
+        col, row = rules.spec(None, "tp"), rules.spec("tp", None)
+        specs = (col, col, D.P(col[1]), row)
+        out = D.with_partial(rules.mesh, x_spec, 3, D.axes_of(row[0]))
+        y = D.local_call(lambda *a: _mlp(*a, kind=kind), [(x, x_spec), *zip(weights, specs)], [out])
+        y = D.shard(y, "batch", "seq", None)
+    if p.get("b_out") is not None:
+        y = y + cast(p["b_out"])
+    return y
 
 
 # ------------------------------------------------------------------ embed / head
 def embed_tokens(tokens: torch.Tensor, w_embed: torch.Tensor) -> torch.Tensor:
-    return F.embedding(tokens, cast(w_embed))
+    """Token lookup.  Under distributed rules, per rank: a vocabulary sharded
+    over tp is looked up in the rank's slice (zero rows elsewhere) and summed
+    over tp; a model dim sharded over tp is gathered."""
+    rules = D.distributed_rules()
+    if rules is None or not isinstance(w_embed, D.DTensor):
+        return F.embedding(tokens, cast(w_embed))
+    rows = D.sanitize_spec(rules, rules.spec("batch", "seq"), tokens.shape)
+    ws = D.spec_of(w_embed)
+    keep = [None if e is None or set(D.axes_of(e)) & set(rules.dp_axes) else e for e in ws]
+    vocab, model = keep
+    w_spec = D.P(vocab, model)
+
+    def lookup(tok, w_l):
+        if vocab is None:
+            return F.embedding(tok, cast(w_l))
+        v_l = w_l.shape[0]
+        local = tok - D.tp_index() * v_l
+        owned = (local >= 0) & (local < v_l)
+        return F.embedding(local.clamp(0, v_l - 1), cast(w_l)) * owned[..., None]
+
+    out = D.with_partial(rules.mesh, D.P(*rows, model), 3, D.axes_of(vocab))
+    y = D.local_call(lookup, [(tokens, rows), (w_embed, w_spec)], [out])
+    return D.shard(y, "batch", "seq", None)
 
 
 class _MatmulF32(torch.autograd.Function):
@@ -192,11 +302,48 @@ def matmul_f32(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
 def lm_head(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     """x: (B, S, D) bf16, w: (D, V) -> logits (B, S, V) fp32 (``matmul_f32``)."""
     b, s, d = x.shape
-    return matmul_f32(x.reshape(b * s, d), w).reshape(b, s, -1)
+    if D.distributed_rules() is None or not isinstance(x, D.DTensor):
+        return matmul_f32(x.reshape(b * s, d), w).reshape(b, s, -1)
+
+    def head(xl, wl):
+        bl, sl, dl = xl.shape
+        return matmul_f32(xl.reshape(bl * sl, dl), wl).reshape(bl, sl, -1)
+
+    return D.shard(local_product(x, w, head), "batch", "seq", "tp")
 
 
 def cross_entropy(logits: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
-    """Mean CE over all positions; logits fp32 (B, S, V), labels (B, S)."""
-    lse = torch.logsumexp(logits, dim=-1)
-    target = torch.gather(logits, -1, labels[..., None].long())[..., 0]
-    return torch.mean(lse - target)
+    """Mean CE over all positions; logits fp32 (B, S, V), labels (B, S).
+
+    Logits sharded over the vocabulary (tp) take the vocab-parallel form: a
+    max over tp, then per rank the sum of exponentials and the target logit
+    where the label falls in its slice, both summed over tp.
+    """
+    if D.distributed_rules() is None or not isinstance(logits, D.DTensor):
+        lse = torch.logsumexp(logits, dim=-1)
+        target = torch.gather(logits, -1, labels[..., None].long())[..., 0]
+        return torch.mean(lse - target)
+    rules = D.distributed_rules()
+    spec = D.sanitize_spec(rules, rules.spec("batch", "seq", "tp"), logits.shape)
+    rows = D.P(*spec[:2])
+    sharded = spec[2] is not None
+
+    def combined(op):
+        return D.with_partial(rules.mesh, rows, 2, D.axes_of(spec[2]), op)
+
+    def local_max(lg):
+        return lg.detach().amax(dim=-1)
+
+    m = D.constrain(D.local_call(local_max, [(logits, spec)], [combined("max")]), rows)
+
+    def local_terms(lg, lab, m):
+        v_l = lg.shape[-1]
+        local = lab.long() - (D.tp_index() * v_l if sharded else 0)
+        owned = (local >= 0) & (local < v_l)
+        picked = torch.gather(lg, -1, local.clamp(0, v_l - 1)[..., None])[..., 0]
+        return torch.exp(lg - m[..., None]).sum(dim=-1), torch.where(owned, picked, 0.0)
+
+    sumexp, target = D.local_call(local_terms, [(logits, spec), (labels, rows), (m, rows)],
+                                  [combined("sum"), combined("sum")])
+    lse = torch.log(D.constrain(sumexp, rows)) + m
+    return torch.mean(lse - D.constrain(target, rows))

@@ -1,9 +1,17 @@
 """Mixture-of-Experts block (top-k routing, capacity-based), ported from ``repro.models.moe``.
 
 The reference runs ``_local_moe`` under ``shard_map`` with the experts
-sharded over the tp axis.  On one device there is one tp shard: every expert
-is local (``tp_index`` 0, ``e_local = E``), and its ``psum`` and ``pmean``
-are the identity, so the port is ``_local_moe`` without them.
+sharded over the tp axis; the port runs ``local_moe`` through
+``distributed.local_call`` the same way under sharding rules on a
+multi-device mesh: tokens batch-sharded over dp and replicated over tp,
+the router replicated, each rank's E/tp experts resident.  A rank routes
+its tokens, keeps the entries whose expert it holds
+(``ent_expert // e_local == tp_index``), fills C = max(ceil(T_local·k/E·cf),
+8) slots per local expert, and its partial outputs and aux leave as
+``Partial`` DTensors: the combine's sum over tp runs in bf16, and aux is
+averaged over tp.  On one device there is one tp shard: every expert is
+local (``tp_index`` 0, ``e_local = E``), and the sum and mean are the
+identity -- the same operations as before the sharded path existed.
 
 Switch-style capacity dispatch, as in the reference:
 
@@ -34,6 +42,7 @@ import math
 
 import torch
 
+from repro_torch import distributed as D
 from repro_torch.models import layers as L
 from repro_torch.models.config import ModelConfig
 
@@ -55,25 +64,38 @@ def route(xf: torch.Tensor, w_router: torch.Tensor, top_k: int):
     return top_p, top_i, aux
 
 
-def dispatch(xf: torch.Tensor, top_i: torch.Tensor, n_exp: int, cap: int):
-    """Gather the entries into their experts' slots.
+def dispatch(xf: torch.Tensor, top_i: torch.Tensor, n_exp: int, cap: int, tp_index: int = 0,
+             n_total: int | None = None):
+    """Gather the entries routed to this rank's ``n_exp`` experts into their slots.
 
-    Returns buf (E, C+1, D) bf16, each entry's slot (T·k,) (C where dropped)
-    and keep (T·k,) bool.  The reference scatter-adds the kept entries into
-    a zero buffer; since kept slots are unique, the port records each slot's
-    token (index T, a zero row, for an empty slot and for the scratch slot,
-    where the dropped entries land) and gathers the buffer in one pass.
+    ``top_i`` holds global expert ids among ``n_total`` (default ``n_exp``);
+    the rank holds experts ``tp_index * n_exp`` onward (all of them on one
+    device).  Returns buf (E_local, C+1, D) bf16, each entry's slot (T·k,)
+    (C where dropped or not local) and keep (T·k,) bool.  The reference scatter-adds the kept entries into a zero buffer;
+    since kept slots are unique, the port records each slot's token (index
+    T, a zero row, for an empty slot and for the scratch slot, where the
+    dropped and the other ranks' entries land) and gathers the buffer in one
+    pass.
     """
     t, k = top_i.shape
     ent_e = top_i.reshape(-1)
-    # running count per expert, as a scan along the entries (the last axis)
-    onehot = (ent_e[None, :] == torch.arange(n_exp, device=xf.device)[:, None]).to(torch.int32)
-    slot = onehot.cumsum(dim=1, dtype=torch.int32).gather(0, ent_e[None, :])[0].long() - 1
+    experts = torch.arange(n_exp, device=xf.device)[:, None]
+    if n_total is None or n_total == n_exp:
+        local_e, is_local = ent_e, None
+        # running count per expert, as a scan along the entries (the last axis)
+        onehot = (ent_e[None, :] == experts).to(torch.int32)
+    else:
+        is_local = (ent_e // n_exp) == tp_index
+        local_e = ent_e % n_exp
+        onehot = ((local_e[None, :] == experts) & is_local[None, :]).to(torch.int32)
+    slot = onehot.cumsum(dim=1, dtype=torch.int32).gather(0, local_e[None, :])[0].long() - 1
     keep = slot < cap
+    if is_local is not None:
+        keep = keep & is_local
     slot = torch.where(keep, slot, cap)
     token = torch.arange(t * k, device=xf.device) // k
     src = torch.full((n_exp * (cap + 1),), t, dtype=torch.long, device=xf.device)
-    src[ent_e * (cap + 1) + slot] = torch.where(keep, token, t)
+    src[local_e * (cap + 1) + slot] = torch.where(keep, token, t)
     rows = torch.cat([L.cast(xf), xf.new_zeros((1, xf.shape[1]), dtype=L.COMPUTE_DTYPE)])
     return rows[src].view(n_exp, cap + 1, -1), slot, keep
 
@@ -90,24 +112,59 @@ def experts(buf: torch.Tensor, p: dict) -> torch.Tensor:
 
 
 def combine(out: torch.Tensor, top_i: torch.Tensor, top_p: torch.Tensor,
-            slot: torch.Tensor, keep: torch.Tensor) -> torch.Tensor:
+            slot: torch.Tensor, keep: torch.Tensor, n_total: int | None = None) -> torch.Tensor:
     """Each token's k weighted expert outputs, summed in fp32: -> (T, D) bf16.
 
+    ``out`` holds this rank's E_local experts of ``n_total`` (default: all).
     A token owns k consecutive entries, so the reference's segment sum is a
     sum over k; ``index_add_`` would order it by its atomics.
     """
     t, k = top_i.shape
+    ent_e = top_i.reshape(-1)
+    if n_total is not None and n_total != out.shape[0]:
+        ent_e = ent_e % out.shape[0]
     w = torch.where(keep, top_p.reshape(-1), 0.0).to(L.COMPUTE_DTYPE)
-    ent_out = out[top_i.reshape(-1), slot] * w[:, None]
+    ent_out = out[ent_e, slot] * w[:, None]
     return ent_out.view(t, k, -1).sum(dim=1, dtype=torch.float32).to(L.COMPUTE_DTYPE)
 
 
-def moe_block(x: torch.Tensor, p: dict, cfg: ModelConfig) -> tuple[torch.Tensor, torch.Tensor]:
-    """x (B, S, D) bf16 -> (y (B, S, D), aux fp32 scalar)."""
+def local_moe(x: torch.Tensor, w_router: torch.Tensor, w_in: torch.Tensor, w_gate: torch.Tensor,
+              w_out: torch.Tensor, cfg: ModelConfig, tp_index: int = 0):
+    """The reference's ``_local_moe`` on one rank: x (B_local, S, D) bf16, the
+    rank's experts (E_local, ...) -> (its partial y (B_local, S, D), aux).
+
+    Summed over the tp ranks, the partial outputs make the block's output;
+    aux is the same on every rank (routing is replicated over tp).
+    """
     b, s, d = x.shape
     xf = x.reshape(b * s, d)
-    top_p, top_i, aux = route(xf, p["w_router"], cfg.moe_top_k)
+    top_p, top_i, aux = route(xf, w_router, cfg.moe_top_k)
     cap = capacity(b * s, cfg.moe_top_k, cfg.moe_experts, cfg.capacity_factor)
-    buf, slot, keep = dispatch(xf, top_i, cfg.moe_experts, cap)
-    y = combine(experts(buf, p), top_i, top_p, slot, keep)
+    buf, slot, keep = dispatch(xf, top_i, w_in.shape[0], cap, tp_index, cfg.moe_experts)
+    p = {"w_in": w_in, "w_gate": w_gate, "w_out": w_out}
+    y = combine(experts(buf, p), top_i, top_p, slot, keep, cfg.moe_experts)
     return y.reshape(b, s, d).to(x.dtype), aux
+
+
+def moe_block(x: torch.Tensor, p: dict, cfg: ModelConfig) -> tuple[torch.Tensor, torch.Tensor]:
+    """x (B, S, D) bf16 -> (y (B, S, D), aux fp32 scalar).
+
+    Under sharding rules on a multi-device mesh, ``local_moe`` per rank with
+    the experts over tp (the reference's ``shard_map``): its partial y leaves
+    as a bf16 sum over tp still to take, aux as a mean over tp.
+    """
+    rules = D.distributed_rules()
+    args = (p["w_router"], p["w_in"], p["w_gate"], p["w_out"])
+    if rules is None:
+        return local_moe(x, *args, cfg)
+    batch = D.sanitize_spec(rules, rules.spec("batch", None, None), x.shape)
+    experts_spec = D.P(rules.tp_axis, None, None)
+    y_out = D.with_partial(rules.mesh, batch, 3, (rules.tp_axis,))
+    # aux: the mean over tp (``pmean``); over dp each shard keeps the aux of its
+    # own tokens, as the reference's replicated out_spec P() leaves it
+    aux_out = D.with_partial(rules.mesh, D.P(), 0, (rules.tp_axis,), "avg")
+    y, aux = D.local_call(
+        lambda x, wr, wi, wg, wo: local_moe(x, wr, wi, wg, wo, cfg, D.tp_index()),
+        [(x, batch), (args[0], D.P(None, None)), (args[1], experts_spec), (args[2], experts_spec),
+         (args[3], experts_spec)], [y_out, aux_out])
+    return D.shard(y, "batch", None, None), aux

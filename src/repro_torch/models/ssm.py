@@ -6,7 +6,13 @@ twin ``ssd_chunked``; on a CPU tensor the wrapper runs the plain version.
 Decode (one token with a cache): the O(1) conv-buffer and state update, in
 plain PyTorch as in the reference.
 
-The reference's ``shard(...)`` annotations have no counterpart on one device.
+Under sharding rules on a multi-device mesh the block runs as the
+reference's annotations place it: z and x (the inner dim) shard over tp
+with the heads when ``ssm_heads % tp == 0``, B, C and dt replicate; the
+projections, convolutions, the scan (or the decode recurrence) and the
+gate run per rank in one ``distributed.local_call`` (``_mixer``), then the
+norm over the inner dim and the out-projection run on DTensors.  With no
+rules, or one device, ``_mixer`` runs on the whole tensors.
 """
 
 from __future__ import annotations
@@ -14,6 +20,7 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 
+from repro_torch import distributed as D
 from repro_torch.kernels import ops
 from repro_torch.models import layers as L
 from repro_torch.models.config import ModelConfig
@@ -63,55 +70,92 @@ def ssd_chunked(
     return ops.ssd_scan(xbar, log_da, bmat, cmat, chunk=chunk, state0=state0)
 
 
-def mamba_block(x: torch.Tensor, p: dict, cfg: ModelConfig, cache: dict | None = None):
-    """Mamba2 block.  x: (B, S, D).  cache: this layer's ``CACHE_KEYS`` tensors.
+def _decode_step(state0, log_da, bmat, xbar, cmat, dtype):
+    """The O(1) decode recurrence over one token: -> (y (B,1,H,P), state)."""
+    bsz, _, h, pd = xbar.shape
+    da = torch.exp(log_da[:, 0])  # (B,H)
+    upd = torch.einsum("bn,bhp->bhpn", bmat[:, 0].float(), xbar[:, 0].float())
+    state = state0 * da[..., None, None] + upd
+    y = torch.einsum("bhpn,bn->bhp", state, cmat[:, 0].float())[:, None]
+    return y.reshape(bsz, 1, h, pd).to(dtype), state
 
-    Returns (y (B,S,D), new_cache): fresh fp32 conv buffers and state, or None
-    without a cache.
-    """
+
+def _mixer(x, w_z, w_x, w_b, w_c, w_dt, w_conv_x, b_conv_x, w_conv_b, b_conv_b, w_conv_c, b_conv_c,
+           dt_bias, a_log, d_skip, conv_x, conv_b, conv_c, state0, cfg: ModelConfig):
+    """The block up to its norm, on one rank's heads (all of them on one device):
+    -> (y * silu(z) (B, S, H_local*P), new conv_x, conv_b, conv_c, state)."""
     bsz, s, _ = x.shape
-    h, pd = cfg.ssm_heads, cfg.ssm_headdim
-    z = L.dense(x, p["w_z"])
-    xs = L.dense(x, p["w_x"])
-    bmat = L.dense(x, p["w_b"])
-    cmat = L.dense(x, p["w_c"])
-    dt = L.dense(x, p["w_dt"])
+    h, pd = dt_bias.shape[0], cfg.ssm_headdim
+    z = L.dense(x, w_z)
+    xs = L.dense(x, w_x)
+    bmat = L.dense(x, w_b)
+    cmat = L.dense(x, w_c)
+    dt = L.dense(x, w_dt)
 
-    cs = cache if cache is not None else {}
-    xs, new_conv_x = depthwise_conv1d(xs, L.cast(p["w_conv_x"]), L.cast(p["b_conv_x"]), cs.get("conv_x"))
-    bmat, new_conv_b = depthwise_conv1d(bmat, L.cast(p["w_conv_b"]), L.cast(p["b_conv_b"]), cs.get("conv_b"))
-    cmat, new_conv_c = depthwise_conv1d(cmat, L.cast(p["w_conv_c"]), L.cast(p["b_conv_c"]), cs.get("conv_c"))
+    xs, new_conv_x = depthwise_conv1d(xs, L.cast(w_conv_x), L.cast(b_conv_x), conv_x)
+    bmat, new_conv_b = depthwise_conv1d(bmat, L.cast(w_conv_b), L.cast(b_conv_b), conv_b)
+    cmat, new_conv_c = depthwise_conv1d(cmat, L.cast(w_conv_c), L.cast(b_conv_c), conv_c)
     xs = L.silu(xs)
     bmat = L.silu(bmat)
     cmat = L.silu(cmat)
 
-    dt = F.softplus(dt.float() + p["dt_bias"])  # (B,S,H) fp32
-    a = -torch.exp(p["a_log"])  # (H,) negative
+    dt = F.softplus(dt.float() + dt_bias)  # (B,S,H) fp32
+    a = -torch.exp(a_log)  # (H,) negative
     log_da = dt * a
     xhp = xs.reshape(bsz, s, h, pd)
     xbar = xhp * dt[..., None].to(xhp.dtype)  # bf16, as the reference keeps it
 
-    state0 = cache["state"] if cache is not None else None
-    if s == 1 and cache is not None:
-        da = torch.exp(log_da[:, 0])  # (B,H)
-        upd = torch.einsum("bn,bhp->bhpn", bmat[:, 0].float(), xbar[:, 0].float())
-        state = state0 * da[..., None, None] + upd
-        y = torch.einsum("bhpn,bn->bhp", state, cmat[:, 0].float())[:, None]
-        y = y.reshape(bsz, 1, h, pd).to(x.dtype)
-        new_state = state
+    if s == 1 and state0 is not None:
+        y, new_state = _decode_step(state0, log_da, bmat, xbar, cmat, x.dtype)
     else:
         y, new_state = ssd_chunked(xbar, log_da, bmat, cmat, cfg.ssm_chunk, state0)
 
-    y = y + xhp * p["d_skip"].to(x.dtype)[None, None, :, None]
-    y = y.reshape(bsz, s, cfg.d_inner)
-    y = L.rms_norm(y * L.silu(z), p["norm"], cfg.norm_eps)
-    out = L.dense(y, p["w_out"])
+    y = y + xhp * d_skip.to(x.dtype)[None, None, :, None]
+    y = y.reshape(bsz, s, h * pd)
+    return y * L.silu(z), new_conv_x, new_conv_b, new_conv_c, new_state
+
+
+_WEIGHTS = ("w_z", "w_x", "w_b", "w_c", "w_dt", "w_conv_x", "b_conv_x", "w_conv_b", "b_conv_b",
+            "w_conv_c", "b_conv_c", "dt_bias", "a_log", "d_skip")
+
+
+def _mixer_specs(rules, cfg: ModelConfig, x) -> tuple[list, list]:
+    """(input specs, output specs) of ``_mixer``'s local call: heads (and the
+    inner dim with them) over tp where ``ssm_heads % tp == 0``, else
+    replicated; B, C and the conv of their streams replicated."""
+    head = rules.tp_axis if cfg.ssm_heads % rules.tp_size == 0 else None
+    batch = D.sanitize_spec(rules, rules.spec("batch"), x.shape[:1])[0]
+    weights = {"w_z": D.P(None, head), "w_x": D.P(None, head), "w_b": D.P(), "w_c": D.P(),
+               "w_dt": D.P(None, head), "w_conv_x": D.P(None, head), "b_conv_x": D.P(head),
+               "w_conv_b": D.P(), "b_conv_b": D.P(), "w_conv_c": D.P(), "b_conv_c": D.P(),
+               "dt_bias": D.P(head), "a_log": D.P(head), "d_skip": D.P(head)}
+    inner, rows = D.P(batch, None, head), D.P(batch, None, None)
+    caches = [inner, rows, rows, D.P(batch, head, None, None)]
+    ins = [D.P(batch, None, None)] + [weights[k] for k in _WEIGHTS] + caches
+    return ins, [inner] + caches
+
+
+def mamba_block(x: torch.Tensor, p: dict, cfg: ModelConfig, cache: dict | None = None):
+    """Mamba2 block.  x: (B, S, D).  cache: this layer's ``CACHE_KEYS`` tensors.
+
+    Returns (y (B,S,D), new_cache): fresh fp32 conv buffers and state, or None
+    without a cache.  Under distributed rules ``_mixer`` runs per rank on its
+    heads, then the norm over the inner dim and the out-projection (its
+    partial sums over tp) run on DTensors, as the reference's annotations
+    place them.
+    """
+    cs = cache if cache is not None else {}
+    args = [x] + [p[k] for k in _WEIGHTS] + [cs.get(k) for k in CACHE_KEYS]
+    rules = D.distributed_rules()
+    if rules is None:
+        y, *new = _mixer(*args, cfg=cfg)
+    else:
+        ins, outs = _mixer_specs(rules, cfg, x)
+        y, *new = D.local_call(lambda *a: _mixer(*a, cfg=cfg), list(zip(args, ins)), outs)
+        y = D.shard(y, "batch", None, "tp")
+    y = L.rms_norm(y, p["norm"], cfg.norm_eps)
+    out = D.shard(L.dense(y, p["w_out"]), "batch", None, None)
     new_cache = None
     if cache is not None:
-        new_cache = {
-            "conv_x": new_conv_x.float(),
-            "conv_b": new_conv_b.float(),
-            "conv_c": new_conv_c.float(),
-            "state": new_state,
-        }
+        new_cache = dict(zip(CACHE_KEYS, (new[0].float(), new[1].float(), new[2].float(), new[3])))
     return out, new_cache

@@ -18,6 +18,11 @@ Under autograd without a cache, each layer of every stack runs under the
 config's ``remat`` policy (``_maybe_remat``), where the reference wraps each
 scan body in ``jax.checkpoint``.
 
+Under sharding rules on a multi-device mesh (``repro_torch.distributed``)
+the same code runs on DTensors, with the reference's annotations on the
+embedded input, the vision embeddings and the encoder's input; with no
+rules, or one device, they are the identity.
+
 Families: dense (qwen2, granite, internlm2), moe (olmoe, qwen3-moe: a dense
 decoder whose MLP is the capacity-routed ``moe.moe_block``), ssm (mamba2),
 hybrid (zamba2: groups of mamba layers, each followed by one shared
@@ -36,6 +41,7 @@ from typing import Any
 import numpy as np
 import torch
 
+from repro_torch import distributed as D
 from repro_torch.device import resolve_device
 from repro_torch.models import attention as A
 from repro_torch.models import layers as L
@@ -190,6 +196,16 @@ def _maybe_remat(fn, cfg: ModelConfig, cache):
         return fn
     from torch.utils.checkpoint import checkpoint, create_selective_checkpoint_contexts
 
+    rules = D.distributed_rules()
+    if rules is not None:
+        # the recompute runs in the backward, on the autograd engine's thread
+        # (the card's device thread): it re-enters the forward's rules there
+        inner = fn
+
+        def fn(*args):
+            with D.use_rules(rules):
+                return inner(*args)
+
     kwargs = {"use_reentrant": False}
     if cfg.remat == "dots":
         kwargs["context_fn"] = functools.partial(create_selective_checkpoint_contexts, _dots_policy)
@@ -273,7 +289,8 @@ def _embed_inputs(params: Params, cfg: ModelConfig, batch: dict, cache: dict | N
     tokens = batch["tokens"]
     x = L.embed_tokens(tokens, params["embed"])
     if cfg.family == "vlm" and "vision_embeds" in batch:
-        x = torch.cat([L.cast(batch["vision_embeds"]), x], dim=1)
+        vis = D.shard(L.cast(batch["vision_embeds"]), "batch", None, None)
+        x = torch.cat([vis, x], dim=1)
     b, s = x.shape[:2]
     if "positions" in batch:
         positions = batch["positions"]
@@ -295,6 +312,7 @@ def _encode_audio(params: Params, cfg: ModelConfig, frames: torch.Tensor) -> tor
     flash kernel, as in the reference.
     """
     x = L.cast(frames) + L.sinusoidal_positions(frames.shape[1], cfg.d_model, frames.device).to(L.COMPUTE_DTYPE)
+    x = D.shard(x, "batch", None, None)
     positions = torch.zeros(x.shape[:2], dtype=torch.int32, device=x.device)
 
     def body(x, p):
@@ -328,6 +346,7 @@ def forward(params: Params, cfg: ModelConfig, batch: dict, cache: dict | None = 
     """
     require_ported(cfg)
     x, positions = _embed_inputs(params, cfg, batch, cache)
+    x = D.shard(x, "batch", "seq", None)
     s = x.shape[1]
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
     new_cache = {**cache, "len": cache["len"] + s} if cache is not None else None

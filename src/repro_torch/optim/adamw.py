@@ -83,7 +83,8 @@ def clip_by_global_norm(grads: Any, max_norm: float):
 def adamw_init(params: Any) -> dict:
     leaves = tree_leaves(params)
     device = leaves[0].device if leaves else None
-    zeros = lambda p: torch.zeros(p.shape, dtype=torch.float32, device=p.device)  # noqa: E731
+    # like the parameter: a DTensor parameter's moments are DTensors of its placements
+    zeros = lambda p: torch.zeros_like(p, dtype=torch.float32)  # noqa: E731
     return {
         "m": tree_map(zeros, params),
         "v": tree_map(zeros, params),

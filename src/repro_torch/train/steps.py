@@ -20,7 +20,9 @@ import dataclasses
 from typing import Any, Callable
 
 import torch
+from torch.distributed.tensor import DTensor
 
+from repro_torch import distributed as D
 from repro_torch.models import transformer as T
 from repro_torch.models.kvcache import advance
 from repro_torch.models.config import ModelConfig
@@ -47,6 +49,14 @@ def _split_microbatches(batch: dict, n: int) -> dict:
     return out
 
 
+def _like(g, p):
+    """A DTensor gradient redistributed to its parameter's placements (the
+    all-reduce or reduce-scatter of its partial sums); a tensor as it is."""
+    if isinstance(p, DTensor) and tuple(g.placements) != tuple(p.placements):
+        return g.redistribute(p.device_mesh, p.placements)
+    return g
+
+
 def value_and_grad(cfg: ModelConfig, params, batch: dict):
     """(loss, metrics, grads) of ``T.loss_fn`` at ``params``, which are left as
     they were; the gradients have the parameters' dtypes and tree."""
@@ -54,7 +64,7 @@ def value_and_grad(cfg: ModelConfig, params, batch: dict):
     with torch.enable_grad():
         loss, metrics = T.loss_fn(tree_unflatten(params, flat), cfg, batch)
         grads = torch.autograd.grad(loss, flat, allow_unused=True)
-    grads = [torch.zeros_like(p) if g is None else g for p, g in zip(flat, grads)]
+    grads = [torch.zeros_like(p) if g is None else _like(g, p) for p, g in zip(flat, grads)]
     return loss.detach(), {k: v.detach() for k, v in metrics.items()}, tree_unflatten(params, grads)
 
 
@@ -104,7 +114,9 @@ def make_serve_step(cfg: ModelConfig):
 
     def serve_step(params, cache, batch):
         logits, _, new_cache = T.forward(params, cfg, batch, cache)
-        next_token = torch.argmax(logits[:, -1, :], dim=-1)
+        # a vocabulary sharded over tp is gathered first (DTensor's argmax over a
+        # sharded dim reads values on the host)
+        next_token = torch.argmax(D.shard(logits[:, -1, :], "batch", None), dim=-1)
         return next_token, new_cache
 
     return serve_step

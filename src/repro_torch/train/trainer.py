@@ -6,8 +6,15 @@ path that survives injected failures.  Parameters are fp32 masters from a
 seeded ``torch.Generator`` on the trainer's device (every use casts them to
 bf16, as the reference's do); the checkpoint holds ``{"params", "opt"}``.
 
-One device: ``rules`` must be None.  Sharding rules, and restoring onto
-another mesh, wait for ROADMAP.md queue 1, item 5.  The step runs eager;
+``rules`` (``repro_torch.distributed.ShardingRules``, or None for one
+device) shard the run: on a multi-device mesh every rank builds the same
+seeded parameters, keeps its shards by ``param_specs`` (with ``fsdp`` where
+the rules say so), makes AdamW's moments as shards beside them
+(``opt_specs``' placement; never whole) and keeps its part of each batch by
+``batch_specs``; the step runs under ``use_rules``, checkpoints
+hold the gathered arrays, and a restore re-shards them onto the current
+mesh, whatever mesh saved them.  On one device (None, or
+``single_device_rules()``) nothing is distributed.  The step runs eager;
 the reference jits it.
 
 ``failure_hook`` lets tests inject a crash at an exact step to exercise the
@@ -25,6 +32,7 @@ from typing import Any, Callable
 
 import torch
 
+from repro_torch import distributed as D
 from repro_torch.checkpoint import CheckpointManager
 from repro_torch.data.pipeline import SyntheticLMData
 from repro_torch.device import resolve_device
@@ -58,12 +66,8 @@ class Trainer:
         failure_hook: Callable[[int], None] | None = None,
         device: torch.device | str | None = None,
     ) -> None:
-        if rules is not None:
-            raise NotImplementedError(
-                "sharding rules are not ported yet: the port trains on one device (rules=None); "
-                "see ROADMAP.md, queue 1, item 5"
-            )
         self.cfg = cfg
+        self.rules = rules
         self.shape = shape
         self.tcfg = tcfg
         self.opt_cfg = opt_cfg or AdamWConfig(total_steps=tcfg.steps)
@@ -73,30 +77,60 @@ class Trainer:
         self.ckpt = CheckpointManager(tcfg.checkpoint_dir, keep=tcfg.keep)
         self.history: list[dict] = []
 
+    def _specs(self, params) -> tuple[Any, Any]:
+        from repro_torch.launch import shardings as SH
+
+        p_specs = SH.param_specs(self.cfg, self.rules, params)
+        return p_specs, SH.opt_specs(p_specs)
+
     def _init_state(self):
         gen = torch.Generator(device=self.device).manual_seed(self.tcfg.seed)
-        params = T.init_params(self.cfg, gen, self.device, param_dtype=torch.float32)
-        return params, adamw_init(params)
+
+        def make_params():
+            return T.init_params(self.cfg, gen, self.device, param_dtype=torch.float32)
+
+        if not D.is_distributed(self.rules):
+            params = make_params()
+            return params, adamw_init(params)
+        from repro_torch.launch import shardings as SH
+
+        return SH.distribute_train_state(self.cfg, self.rules, make_params)
 
     def _batch(self, step: int) -> dict:
         out = {}
         for k, v in self.data.batch(step).items():
             t = torch.from_numpy(v)
             out[k] = (t.long() if t.dtype == torch.int32 else t).to(self.device)
+        if D.is_distributed(self.rules):
+            from repro_torch.launch import shardings as SH
+
+            out = SH.distribute_tree(self.rules, out, SH.batch_specs(self.cfg, self.rules, out))
         return out
+
+    def _restore(self, params, opt_state):
+        skeleton = {"params": params, "opt": opt_state}
+        shardings = None
+        if D.is_distributed(self.rules):
+            from repro_torch.launch import shardings as SH
+
+            p_specs, o_specs = self._specs(params)
+            shardings = SH.to_shardings(self.rules, {"params": p_specs, "opt": o_specs}, skeleton)
+        restored, step = self.ckpt.restore(skeleton, shardings=shardings)
+        state = tree_map(lambda a, like: torch.as_tensor(a).to(like.device, like.dtype), restored, skeleton)
+        return state["params"], state["opt"], step
 
     def run(self) -> dict:
         """Run (or resume) training; returns final metrics."""
+        with D.use_rules(self.rules):
+            return self._run()
+
+    def _run(self) -> dict:
         params, opt_state = self._init_state()
         start = 0
         latest = self.ckpt.latest_step()
         if latest is not None:
-            skeleton = {"params": params, "opt": opt_state}
-            restored, step = self.ckpt.restore(skeleton)
-            state = tree_map(lambda a, like: torch.as_tensor(a).to(like.device, like.dtype), restored, skeleton)
-            params, opt_state = state["params"], state["opt"]
-            start = step
-            log.info("resumed from checkpoint at step %d", step)
+            params, opt_state, start = self._restore(params, opt_state)
+            log.info("resumed from checkpoint at step %d", start)
 
         step_fn = make_train_step(self.cfg, self.opt_cfg, self.tcfg.n_microbatches)
         metrics = {}
@@ -106,7 +140,7 @@ class Trainer:
             batch = self._batch(step)
             t0 = time.perf_counter()
             params, opt_state, metrics = step_fn(params, opt_state, batch)
-            metrics = {k: float(v) for k, v in metrics.items()}
+            metrics = {k: float(D.full_tensor(v)) for k, v in metrics.items()}
             metrics["step_time_s"] = time.perf_counter() - t0
             metrics["step"] = step
             self.history.append(metrics)

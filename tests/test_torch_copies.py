@@ -66,6 +66,7 @@ VERBATIM = (
     "analysis/reporters.py",
     "data/__init__.py",
     "data/pipeline.py",
+    "roofline/__init__.py",
 )
 
 _STATELESS = (
@@ -79,6 +80,8 @@ PATCHED = {
         "            # Jitted kernel when the jax predict backend is active (env or a\n",
         "            # ``predict_backend`` attribute); bitwise-identical, see\n",
     ),
+    # the H100's datasheet figures added beside V5E_HW; no line dropped
+    "roofline/analysis.py": (),
     # a file under src/repro_torch/ names a module of the port
     "analysis/engine.py": (
         '    if "repro" in parts:\n',
@@ -93,16 +96,20 @@ DIVERGENT = {
     "accelerators/__init__.py": "registers torch_device in place of xla_cpu beside the analytic platforms",
     "accelerators/torch_kernels.py": "the counterpart of accelerators/jax_kernels.py, rewritten for torch",
     "checkpoint/manager.py": "torch tensors go to the host, bf16 as the reference's |V2 words; "
-                             "restoring onto a mesh is not ported",
+                             "DTensor leaves are gathered and written by rank 0, and a restore onto a "
+                             "mesh places them with distribute_tensor",
     "api/oracle.py": "the backend default and branch go to torch_predict; a device field",
     "api/__init__.py": "its docstring's example campaign runs torch_device, on the card",
     "serving/server.py": "a device field; backends torch or numpy, and network cache keys "
                          "scoped for torch with a log target (rtol 1e-12, not bitwise)",
     "analysis/rules.py": "every scope names the port's modules (repro_torch.*), and no-eager-torch, "
-                         "the torch counterpart of no-eager-jax (tests/test_torch_analysis.py)",
+                         "the torch counterpart of no-eager-jax (tests/test_torch_analysis.py), whose "
+                         "heavy modules name distributed, launch.mesh and launch.train as the "
+                         "reference's jax-heavy ones do",
 }
 
-PACKAGES = ("api", "obs", "core", "accelerators", "checkpoint", "runtime", "serving", "analysis", "data")
+PACKAGES = ("api", "obs", "core", "accelerators", "checkpoint", "runtime", "serving", "analysis", "data",
+            "roofline")
 
 
 def _as_port(source: str) -> str:

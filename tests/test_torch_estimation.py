@@ -385,8 +385,9 @@ def test_paths_that_reach_the_runtime_raise(tmp_path):
     """The runtime's paths run (they raised until the runtime was ported):
     every stage takes a runtime and stamps its stats, a session attaches the
     runtime to the cached platform for its span only, and ``gc`` compacts a
-    hub's journal.  Restoring onto a mesh still raises (ROADMAP.md, queue 1,
-    item 5)."""
+    hub's journal.  Restoring with ``shardings`` (onto a mesh since the
+    sharding slice) leaves a leaf whose sharding is None as it is; the
+    restores onto meshes are in tests/test_torch_sharded.py."""
     from repro_torch.checkpoint.manager import CheckpointManager, journal_path
 
     hub = tapi.EstimatorHub(str(tmp_path / "hub"))
@@ -408,8 +409,8 @@ def test_paths_that_reach_the_runtime_raise(tmp_path):
     mgr.save(1, {"w": torch.arange(4.0), "b": np.ones(2)})
     tree, step = mgr.restore({"w": None, "b": None})
     assert step == 1 and tree["w"].tolist() == [0.0, 1.0, 2.0, 3.0]
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        mgr.restore({"w": None, "b": None}, shardings={"w": None, "b": None})
+    tree, step = mgr.restore({"w": None, "b": None}, shardings={"w": None, "b": None})
+    assert step == 1 and tree["w"].tolist() == [0.0, 1.0, 2.0, 3.0] and tree["b"].tolist() == [1.0, 1.0]
 
 
 def test_the_api_exports_the_reference_surface_but_the_runtime():

@@ -377,11 +377,21 @@ def test_crash_and_resume(tmp_path):
 
 
 def test_trainer_refuses_sharding_rules_and_a_missing_card(tmp_path):
+    """Since the sharding slice the trainer takes rules (the sharded runs are in
+    tests/test_torch_sharded.py): rules of one device train as ``None`` does,
+    to the same losses.  A missing card is still refused."""
+    from repro_torch.distributed import single_device_rules
+
     cfg = reduced(get_config("qwen2-1.5b"))
     shape = InputShape("t", 16, 2, "train")
+    losses = []
+    for i, rules in enumerate((single_device_rules(), None)):
+        tcfg = TrainerConfig(steps=1, checkpoint_dir=str(tmp_path / str(i)))
+        trainer = Trainer(cfg, shape, rules, tcfg, device="cpu")
+        trainer.run()
+        losses.append([h["loss"] for h in trainer.history])
+    assert losses[0] == losses[1] and len(losses[0]) == 1
     tcfg = TrainerConfig(steps=1, checkpoint_dir=str(tmp_path))
-    with pytest.raises(NotImplementedError, match="queue 1, item 5"):
-        Trainer(cfg, shape, object(), tcfg, device="cpu")
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="cuda"):
             Trainer(cfg, shape, None, tcfg)
@@ -397,4 +407,4 @@ def test_launcher_trains_the_reduced_model_on_the_cpu(tmp_path):
     assert "final:" in proc.stdout and "'step': 2" in proc.stdout
     assert CheckpointManager(str(tmp_path)).all_steps() == [2, 3]
     proc = subprocess.run(args[:-4] + ["--production-mesh"], capture_output=True, text=True, env=env, timeout=300)
-    assert proc.returncode != 0 and "queue 1, item 5" in proc.stderr
+    assert proc.returncode != 0 and "needs a world of 256 ranks" in proc.stderr
