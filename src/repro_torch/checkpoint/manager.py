@@ -19,8 +19,11 @@ keyed by process index; the single-process container exercises the same code
 path with process count 1 (see DESIGN.md §5).
 
 In the port a DTensor leaf (a sharded run) is gathered to its full value
-(``full_tensor``, on every rank), rank 0 writes, and every rank waits at a
-barrier; the stored arrays and manifest are those of an unsharded run.
+leaf by leaf (``full_tensor``: every rank joins each gather), only rank 0
+keeps the host array (the other ranks drop each gathered leaf before the
+next gather, so the host holds one copy of the state, as the reference's
+one process does), rank 0 writes, and every rank waits at a barrier; the
+stored arrays and manifest are those of an unsharded run.
 ``restore(shardings=...)`` places each leaf with ``distribute_tensor`` onto
 the mesh of its ``NamedSharding`` -- any mesh, so a run saved on one mesh
 resumes on another.
@@ -91,15 +94,22 @@ def _is_tensor(v: Any) -> bool:
     return torch is not None and isinstance(v, torch.Tensor)
 
 
-def _to_host(v: Any) -> np.ndarray:
-    """Gather one leaf to a host numpy array (a bf16 tensor as ``|V2`` words)."""
+def _to_host(v: Any, keep: bool = True) -> np.ndarray | None:
+    """Gather one leaf to a host numpy array (a bf16 tensor as ``|V2`` words).
+
+    A DTensor is gathered whatever ``keep`` says (the gather is collective:
+    every rank joins it); without ``keep`` the gathered leaf is dropped
+    here and None comes back.
+    """
+    if _is_dtensor(v):
+        v = v.full_tensor()
+    if not keep:
+        return None
     if isinstance(v, (np.ndarray, np.generic, int, float, bool, list, tuple)):
         return np.asarray(v)
     if _is_tensor(v):
         import torch
 
-        if _is_dtensor(v):
-            v = v.full_tensor()
         v = v.detach().cpu()
         if v.dtype == torch.bfloat16:
             return v.contiguous().view(torch.int16).numpy().view(_BF16_WORDS)
@@ -151,11 +161,14 @@ class CheckpointManager:
     # ------------------------------------------------------------------ save
     def save(self, step: int, tree: Any) -> str:
         """Write ``tree`` as step ``step``; every rank of a sharded run calls it
-        (the gather is collective), rank 0 writes, all return after it has."""
+        (each leaf's gather is collective), rank 0 keeps the host arrays and
+        writes, all return after it has."""
         flat = _flatten(tree)
-        arrays = {k: _to_host(v) for k, v in flat.items()}
+        writer = _rank() == 0
+        # leaf by leaf: beside what rank 0 keeps, a rank holds one gathered leaf at most
+        arrays = {k: _to_host(v, keep=writer) for k, v in flat.items()}
         final = os.path.join(self.directory, f"step_{step:09d}")
-        if _rank() != 0:
+        if not writer:
             _barrier()
             return final
         tmp = final + ".tmp"

@@ -329,13 +329,16 @@ def fake_world(size: int, mesh_shape, axis_names, device_type: str):
 
 
 def _fake_inputs(cfg: ModelConfig, shape: InputShape, rules, device: str) -> dict:
-    """Parameters (fp32, as the reference's), optimizer state, batch and cache
-    of a cell, placed by their specs; call under ``FakeTensorMode``."""
+    """Parameters (fp32 masters for training, as the reference's; bf16 for
+    prefill and decode, the weights the port serves), optimizer state, batch
+    and cache of a cell, placed by their specs; call under ``FakeTensorMode``."""
+    from repro_torch.models import layers as L
     from repro_torch.models import transformer as T
     from repro_torch.models.kvcache import init_cache
 
     def make_params():
-        return T.init_params(cfg, None, device, param_dtype=torch.float32)
+        dtype = torch.float32 if shape.kind == "train" else L.COMPUTE_DTYPE
+        return T.init_params(cfg, None, device, param_dtype=dtype)
 
     out: dict[str, Any] = {}
     if shape.kind == "train":
