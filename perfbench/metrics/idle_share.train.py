@@ -1,0 +1,9 @@
+"""idle_share.train: percent of one profiled training step in which no operation ran on the
+device (the union of the profiler's kernel, copy and fill intervals); nothing when its records are
+incomplete."""
+
+from perfbench import trace
+
+
+def read(ctx):
+    return trace.idle_percent(ctx.get("profile"))
