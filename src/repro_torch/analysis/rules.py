@@ -613,11 +613,16 @@ class MergeOrder(Rule):
 # --------------------------------------------------------- obs zero overhead
 def _is_span_call(node: ast.Call) -> str | None:
     func = node.func
-    if isinstance(func, ast.Name) and func.id in ("span", "instant"):
+    if isinstance(func, ast.Name) and func.id in ("span", "instant", "phase"):
         return func.id
     if isinstance(func, ast.Attribute) and func.attr in ("span", "instant"):
         base = dotted_name(func.value) or ""
         if base.split(".")[-1] in ("obs", "trace") or base in ("repro_torch.obs",):
+            return func.attr
+    # the port's phase recorder (repro_torch.phases.phase): a span on the same fast path
+    if isinstance(func, ast.Attribute) and func.attr == "phase":
+        base = dotted_name(func.value) or ""
+        if base.split(".")[-1] == "phases":
             return func.attr
     return None
 
@@ -676,6 +681,8 @@ class ObsZeroOverhead(Rule):
     )
     scope = ("repro_torch.api", "repro_torch.serving", "repro_torch.runtime", "repro_torch.core",
              "repro_torch.accelerators", "repro_torch.launch", "repro_torch.obs.report")
+    # the port's own phase call sites are held to it too (no reference counterpart)
+    scope = scope + ("repro_torch.train", "repro_torch.kernels", "repro_torch.phases")
 
     def check(self, ctx: FileContext) -> Iterable[Finding]:
         for node in ast.walk(ctx.tree):

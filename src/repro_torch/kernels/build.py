@@ -10,7 +10,10 @@ same text: checking out an older source finds (or builds) the older library,
 never a newer one.  A new library is written under a temporary name and
 renamed, so concurrent builds never load a torn file.
 
-The loaded libraries are cached for the life of the process.
+The loaded libraries are cached for the life of the process.  Each first
+load is a ``kernels.load`` phase (``repro_torch.phases``; its span names
+the kernel and whether nvcc ran) and counts in ``kernels.builds`` or
+``kernels.cache_loads``, so a trace shows which kernel was built again.
 """
 
 from __future__ import annotations
@@ -24,6 +27,8 @@ import subprocess
 import tempfile
 import time
 from pathlib import Path
+
+from repro_torch import phases
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch_kernels"
@@ -87,5 +92,11 @@ def build(name: str) -> tuple[Path, str, float]:
 @functools.cache
 def load(name: str) -> ctypes.CDLL:
     """Build (if needed) and load ``csrc/<name>.cu``'s library."""
-    lib, _, _ = build(name)
-    return ctypes.CDLL(str(lib))
+    with phases.phase("kernels.load") as ph:
+        lib, _, seconds = build(name)
+        built = seconds > 0
+        if ph:
+            ph.set(kernel=name, build="built" if built else "cached")
+        loaded = ctypes.CDLL(str(lib))
+    phases.count("kernels.builds" if built else "kernels.cache_loads")
+    return loaded

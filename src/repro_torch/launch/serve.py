@@ -81,9 +81,21 @@ def generate(cfg, params, prompts, gen_len: int, device=None, extras: dict | Non
     captures a CUDA graph (``capture_serve_step``), which is replayed for
     the other ``gen_len - 2`` steps; a failed capture or replay raises.  On
     the CPU every step runs eager.
+
+    The call records its phases (``repro_torch.phases``): ``serve.generate``
+    around it all, ``serve.first_token`` from the call to the first token's
+    ``argmax`` on the device, ``serve.prefill``, ``serve.capture`` and
+    ``serve.decode`` (every later step), the first token on the device's
+    clock too (and the decode, when a tracer is installed); the allocator's
+    device allocations and frees
+    since the previous call returned (``serve.device_allocs``); and the
+    counters ``serve.batches``, ``serve.prompt_tokens``,
+    ``serve.generated_tokens``, ``serve.graph_captures`` and
+    ``serve.graph_replays``.  None of it waits for the device.
     """
     import torch
 
+    from repro_torch import phases
     from repro_torch.device import resolve_device
     from repro_torch.models import transformer as T
     from repro_torch.models.kvcache import init_cache
@@ -92,39 +104,57 @@ def generate(cfg, params, prompts, gen_len: int, device=None, extras: dict | Non
     dev = resolve_device(device)
     if params["embed"].device.type != dev.type:
         raise ValueError(f"params live on {params['embed'].device}, generate asked for {dev}")
-    tokens = torch.as_tensor(np.asarray(prompts), dtype=torch.long, device=dev)
-    b, s = tokens.shape
-    batch = {"tokens": tokens}
-    for k, v in (extras or {}).items():
-        batch[k] = v.to(dev) if isinstance(v, torch.Tensor) else torch.as_tensor(np.asarray(v), device=dev)
-    # A decode step writes at the cache's device-side length with no bounds
-    # check; this cache holds the prompt and every step's write (the last at
-    # position s + gen_len - 2), which settles the room on the host, once.
-    n_vis = batch["vision_embeds"].shape[1] if "vision_embeds" in batch else 0
-    if n_vis + s + gen_len - 1 > s + gen_len:
-        raise ValueError(
-            f"{n_vis} vision tokens before a prompt of {s} and {gen_len - 1} decode steps do not fit "
-            f"the cache of {s + gen_len} positions that generate sizes from the prompt, as the "
-            f"reference's does"
-        )
-    cache = init_cache(cfg, b, s + gen_len, dev)
-    if cfg.family == "audio":
-        cache.pop("enc_kv")  # computed by the prefill
-
-    with torch.no_grad():
-        logits, _, cache = T.forward(params, cfg, batch, cache)
-        out = [torch.argmax(logits[:, -1, :], dim=-1)]
-        if dev.type == "cuda" and gen_len > 1:
-            step = capture_serve_step(cfg, params, cache, {"tokens": out[-1][:, None]})
+    with phases.phase("serve.generate") as call, torch.no_grad():
+        with phases.phase("serve.first_token", dev):
+            tokens = torch.as_tensor(np.asarray(prompts), dtype=torch.long, device=dev)
+            b, s = tokens.shape
+            batch = {"tokens": tokens}
+            for k, v in (extras or {}).items():
+                batch[k] = v.to(dev) if isinstance(v, torch.Tensor) else torch.as_tensor(np.asarray(v), device=dev)
+            # A decode step writes at the cache's device-side length with no bounds
+            # check; this cache holds the prompt and every step's write (the last at
+            # position s + gen_len - 2), which settles the room on the host, once.
+            n_vis = batch["vision_embeds"].shape[1] if "vision_embeds" in batch else 0
+            if n_vis + s + gen_len - 1 > s + gen_len:
+                raise ValueError(
+                    f"{n_vis} vision tokens before a prompt of {s} and {gen_len - 1} decode steps do not fit "
+                    f"the cache of {s + gen_len} positions that generate sizes from the prompt, as the "
+                    f"reference's does"
+                )
+            cache = init_cache(cfg, b, s + gen_len, dev)
+            if cfg.family == "audio":
+                cache.pop("enc_kv")  # computed by the prefill
+            with phases.phase("serve.prefill"):
+                logits, _, cache = T.forward(params, cfg, batch, cache)
+            out = [torch.argmax(logits[:, -1, :], dim=-1)]
+        graph = dev.type == "cuda" and gen_len > 1
+        replays = gen_len - 2 if graph else 0
+        if call:
+            call.set(batch_id=phases.counter("serve.batches").value + 1, batch=b, prompt=s, gen=gen_len)
+        if graph:
+            with phases.phase("serve.capture"):
+                step = capture_serve_step(cfg, params, cache, {"tokens": out[-1][:, None]})
             out.append(step.tokens[:, 0].clone())
-            for _ in range(gen_len - 2):
-                out.append(step.replay()[:, 0].clone())
-            return torch.stack(out, dim=1)
-        serve_step = make_serve_step(cfg)
-        for _ in range(gen_len - 1):
-            next_tok, cache = serve_step(params, cache, {"tokens": out[-1][:, None]})
-            out.append(next_tok)
-        return torch.stack(out, dim=1)
+            # timed on the device only when traced: a pair costs ~13 us of host time (phases)
+            with phases.phase("serve.decode", dev if call else None) as ph:
+                if ph:
+                    ph.set(replays=replays)
+                for _ in range(replays):
+                    out.append(step.replay()[:, 0].clone())
+            phases.count("serve.graph_captures")
+            phases.count("serve.graph_replays", replays)
+        else:
+            serve_step = make_serve_step(cfg)
+            with phases.phase("serve.decode"):
+                for _ in range(gen_len - 1):
+                    next_tok, cache = serve_step(params, cache, {"tokens": out[-1][:, None]})
+                    out.append(next_tok)
+        tokens_out = torch.stack(out, dim=1)
+    phases.count("serve.batches")
+    phases.count("serve.prompt_tokens", b * s)
+    phases.count("serve.generated_tokens", b * gen_len)
+    phases.allocator_calls("serve", dev)
+    return tokens_out
 
 
 #: the estimate's platform, as a hub names it, and the layer types it trains
@@ -340,8 +370,10 @@ def main(argv: list[str] | None = None) -> int:
     ap.add_argument("--predict-backend", default=None, choices=("torch", "numpy"),
                     help="inference engine for served oracles (default: torch, on --device)")
     ap.add_argument("--trace-dir", default=None,
-                    help="write a span trace (serve-<pid>.jsonl) into this "
-                         "directory; render with python -m repro_torch.obs.report")
+                    help="write a span trace into this directory (serve-<pid>.jsonl "
+                         "with --serve-oracle; serve-<pid>.json, Chrome/Perfetto, and "
+                         "serve-<pid>.metrics.json for a model run); render with "
+                         "python -m repro_torch.obs.report")
     ap.add_argument("--metrics-interval", type=float, default=0.0,
                     help="print a metrics digest every N seconds (0 = off)")
     ap.add_argument("--max-queue", type=int, default=8192,
@@ -383,6 +415,7 @@ def main(argv: list[str] | None = None) -> int:
             return 0
     import torch
 
+    from repro_torch import obs, phases
     from repro_torch.device import resolve_device
     from repro_torch.models import transformer as T
 
@@ -396,13 +429,18 @@ def main(argv: list[str] | None = None) -> int:
         extras["frames"] = rng.standard_normal(
             (args.batch, cfg.encoder_seq, cfg.d_model)
         ).astype(np.float32) * 0.1
-    t0 = time.perf_counter()
-    tokens = generate(cfg, params, prompts, args.gen, dev, extras)
-    if dev.type == "cuda":
-        torch.cuda.synchronize(dev)
-    dt = time.perf_counter() - t0
+    tracer = obs.Tracer(None) if args.trace_dir else None
+    with obs.tracing(tracer):
+        t0 = time.perf_counter()
+        tokens = generate(cfg, params, prompts, args.gen, dev, extras)
+        if dev.type == "cuda":
+            torch.cuda.synchronize(dev)
+        dt = time.perf_counter() - t0
     print(f"generated {tuple(tokens.shape)} on {dev} in {dt:.2f}s "
           f"({args.batch * args.gen / dt:.1f} tok/s)\n{tokens[:2].cpu().numpy()}")
+    if tracer is not None:
+        trace, snapshot = phases.write_trace(tracer, args.trace_dir, "serve")
+        print(f"trace {trace}, metrics {snapshot} (render: python -m repro_torch.obs.report {trace})")
     return 0
 
 

@@ -16,6 +16,12 @@ parameters, gradients and AdamW moments).
 entry point; on a world of another size it raises, naming the size it
 needs.  Without them the trainer gets ``single_device_rules()``, as the
 reference's does: on one device every sharding annotation is the identity.
+
+``--trace-dir DIR`` keeps a span trace of the run in memory (the steps'
+phases, ``repro_torch.phases``) and writes it at the end as
+``DIR/train-<pid>.json`` (Chrome/Perfetto) with a snapshot of the metrics
+registry, ``DIR/train-<pid>.metrics.json``; ``python -m
+repro_torch.obs.report`` renders either.
 """
 
 from __future__ import annotations
@@ -25,6 +31,7 @@ import logging
 import os
 import tempfile
 
+from repro_torch import obs, phases
 from repro_torch.configs import get_config
 from repro_torch.distributed import for_mesh, single_device_rules
 from repro_torch.models.config import InputShape, reduced
@@ -46,6 +53,8 @@ def main(argv: list[str] | None = None) -> None:
     ap.add_argument("--production-mesh", action="store_true")
     ap.add_argument("--multi-pod", action="store_true")
     ap.add_argument("--device", default=None, help="cuda (default) or cpu")
+    ap.add_argument("--trace-dir", default=None,
+                    help="write train-<pid>.json (Chrome/Perfetto) and train-<pid>.metrics.json here")
     args = ap.parse_args(argv)
 
     if args.production_mesh or args.multi_pod:
@@ -68,8 +77,13 @@ def main(argv: list[str] | None = None) -> None:
     )
     trainer = Trainer(cfg, shape, rules, tcfg, AdamWConfig(lr=args.lr, total_steps=args.steps),
                       device=args.device)
-    metrics = trainer.run()
+    tracer = obs.Tracer(None) if args.trace_dir else None
+    with obs.tracing(tracer):
+        metrics = trainer.run()
     print("final:", metrics)
+    if tracer is not None:
+        trace, snapshot = phases.write_trace(tracer, args.trace_dir, "train")
+        print(f"trace {trace}, metrics {snapshot} (render: python -m repro_torch.obs.report {trace})")
 
 
 if __name__ == "__main__":

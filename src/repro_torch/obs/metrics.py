@@ -99,6 +99,10 @@ class Histogram:
         self.count += 1
         self.total += value
 
+    def values(self) -> list[float]:
+        """A copy of the window's observations, oldest first."""
+        return list(self._values)
+
     def snapshot(self) -> dict:
         pcts = percentile_summary(self._values)
         return {

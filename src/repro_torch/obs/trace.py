@@ -34,18 +34,27 @@ per line, timestamps in microseconds since the tracer's epoch.  The JSONL is
 the append-only native format (crash-tolerant: a torn tail line loses one
 event); :func:`export_chrome` wraps the events into the ``{"traceEvents":
 [...]}`` JSON that ``chrome://tracing`` and https://ui.perfetto.dev load
-directly.  ``pid``/``tid`` are real process/thread ids, so scheduler chunks
+directly.  ``Tracer(None)`` keeps the events in memory instead and writes
+nothing until :meth:`Tracer.export_chrome`.  ``pid``/``tid`` are real process/thread ids, so scheduler chunks
 executed by pool workers (which report their own pid and wall-clock window
 back to the parent) render as parallel tracks next to the dispatching
 process.  Wall-clock times from other processes are mapped onto the trace
 timeline through the epoch pair captured at construction (``time.time`` and
-``time.perf_counter`` at the same instant).
+``time.perf_counter`` at the same instant).  The pair is the trace's first
+record (a ``trace_epoch`` metadata event) and the Chrome export's
+``otherData``; :func:`wall_ns` maps a span's ``ts`` onto Unix-epoch
+nanoseconds, the clock of ``torch.profiler``'s event times.
+
+Each span's ``args`` carry ``span_id``, ``parent_id`` (the enclosing span of
+the same thread, or None) and ``root_id`` (the outermost one's id), so the
+spans of one request or one step share an identifier.
 """
 
 from __future__ import annotations
 
 import contextlib
 import functools
+import itertools
 import json
 import os
 import threading
@@ -76,6 +85,9 @@ NULL_SPAN = _NullSpan()
 
 #: process-global active tracer (None = tracing disabled)
 _TRACER: "Tracer | None" = None
+
+#: name of the metadata record that holds a trace's epoch pair
+EPOCH_EVENT = "trace_epoch"
 
 
 def get_tracer() -> "Tracer | None":
@@ -176,7 +188,7 @@ def disable_tracing() -> None:
 class _Span:
     """One live span: records enter/exit on the owning tracer."""
 
-    __slots__ = ("_tracer", "_name", "_cat", "_args", "_t0")
+    __slots__ = ("_tracer", "_name", "_cat", "_args", "_t0", "_id", "_parent", "_root")
 
     def __init__(self, tracer: "Tracer", name: str, cat: str, args) -> None:
         self._tracer = tracer
@@ -194,19 +206,28 @@ class _Span:
         return self
 
     def __enter__(self) -> "_Span":
-        self._t0 = self._tracer.now_us()
+        tracer = self._tracer
+        stack = tracer._stack()
+        self._id = next(tracer._ids)
+        self._parent = stack[-1]._id if stack else None
+        self._root = stack[0]._id if stack else self._id
+        stack.append(self)
+        self._t0 = tracer.now_us()
         return self
 
     def __exit__(self, exc_type, exc, tb) -> bool:
-        args = self._args
-        if exc_type is not None:
-            args = dict(args or ())
-            args["error"] = exc_type.__name__
         tracer = self._tracer
-        tracer.complete(
-            self._name, self._t0, tracer.now_us() - self._t0,
-            args=args, cat=self._cat,
-        )
+        t1 = tracer.now_us()
+        stack = tracer._stack()
+        if stack and stack[-1] is self:
+            stack.pop()
+        elif self in stack:
+            stack.remove(self)
+        args = dict(self._args or ())
+        args.update(span_id=self._id, parent_id=self._parent, root_id=self._root)
+        if exc_type is not None:
+            args["error"] = exc_type.__name__
+        tracer.complete(self._name, self._t0, t1 - self._t0, args=args, cat=self._cat)
         return False
 
 
@@ -216,16 +237,22 @@ class Tracer:
     Thread-safe: spans may be emitted from any thread (serving handlers, the
     admission batcher, scheduler journal callbacks); each writer thread gets
     its own track via its real thread id, labelled once with an ``"M"``
-    metadata event.
+    metadata event.  With ``path=None`` the records stay in memory
+    (:meth:`events`) until :meth:`export_chrome` writes them.
     """
 
-    def __init__(self, path: str, process_name: str = "repro") -> None:
+    def __init__(self, path: str | None = None, process_name: str = "repro") -> None:
         self.path = path
-        directory = os.path.dirname(path)
-        if directory:
-            os.makedirs(directory, exist_ok=True)
-        self._fh = open(path, "a", encoding="utf-8")
+        self._fh = None
+        self._memory: list[dict] = []
+        if path is not None:
+            directory = os.path.dirname(path)
+            if directory:
+                os.makedirs(directory, exist_ok=True)
+            self._fh = open(path, "a", encoding="utf-8")
         self._lock = threading.Lock()
+        self._local = threading.local()
+        self._ids = itertools.count(1)
         self.pid = os.getpid()
         # Epoch pair: perf_counter timestamps (monotonic, high resolution) for
         # in-process spans; the wall-clock epoch maps worker-process wall
@@ -241,6 +268,19 @@ class Tracer:
                 "ts": 0, "args": {"name": process_name},
             }
         )
+        self._write(
+            {
+                "ph": "M", "name": EPOCH_EVENT, "pid": self.pid, "tid": 0,
+                "ts": 0, "args": {"wall": self.epoch_wall, "perf": self.epoch_perf},
+            }
+        )
+
+    def _stack(self) -> list:
+        """This thread's open spans, outermost first."""
+        stack = getattr(self._local, "stack", None)
+        if stack is None:
+            stack = self._local.stack = []
+        return stack
 
     # ---------------------------------------------------------------- clocks
     def now_us(self) -> float:
@@ -251,8 +291,17 @@ class Tracer:
         """Map a ``time.time()`` stamp (any process, same host) to trace time."""
         return (wall_seconds - self.epoch_wall) * 1e6
 
+    def wall_ns(self, ts_us: float) -> int:
+        """Map a trace timestamp to Unix-epoch nanoseconds (see :func:`wall_ns`)."""
+        return wall_ns(ts_us, self.epoch_wall)
+
     # --------------------------------------------------------------- writing
     def _write(self, record: dict) -> None:
+        if self._fh is None:
+            with self._lock:
+                self._memory.append(record)
+                self.events_written += 1
+            return
         line = json.dumps(record, separators=(",", ":"), default=str)
         with self._lock:
             self._fh.write(line + "\n")
@@ -345,11 +394,27 @@ class Tracer:
         )
 
     # ------------------------------------------------------------- lifecycle
+    def events(self) -> list[dict]:
+        """The records so far: a copy of the in-memory ones, or the file's."""
+        if self._fh is None:
+            with self._lock:
+                return list(self._memory)
+        self.flush()
+        return load_events(self.path)
+
+    def export_chrome(self, out_path: str) -> int:
+        """Write the records as ``chrome://tracing``/Perfetto JSON; returns their number."""
+        return _dump_chrome(self.events(), out_path)
+
     def flush(self) -> None:
+        if self._fh is None:
+            return
         with self._lock:
             self._fh.flush()
 
     def close(self) -> None:
+        if self._fh is None:
+            return
         with self._lock:
             if not self._fh.closed:
                 self._fh.flush()
@@ -364,7 +429,8 @@ class Tracer:
 
 # ------------------------------------------------------------------- export
 def load_events(path: str) -> list[dict]:
-    """Read a JSONL trace, skipping blank and torn (partially written) lines."""
+    """Read a JSONL trace, skipping blank and torn (partially written) lines;
+    a Chrome/Perfetto export (one ``{"traceEvents": [...]}`` object) gives its events."""
     events: list[dict] = []
     with open(path, encoding="utf-8") as fh:
         for line in fh:
@@ -375,14 +441,35 @@ def load_events(path: str) -> list[dict]:
                 record = json.loads(line)
             except ValueError:
                 continue  # torn tail line from a crash: the rest is intact
-            if isinstance(record, dict):
+            if isinstance(record, dict) and isinstance(record.get("traceEvents"), list):
+                events.extend(ev for ev in record["traceEvents"] if isinstance(ev, dict))
+            elif isinstance(record, dict):
                 events.append(record)
     return events
 
 
+def epoch(events: list[dict]) -> dict | None:
+    """The trace's epoch pair ``{"wall": time.time(), "perf": perf_counter()}``, or None."""
+    for ev in events:
+        if ev.get("ph") == "M" and ev.get("name") == EPOCH_EVENT:
+            return dict(ev.get("args") or {})
+    return None
+
+
+def wall_ns(ts_us: float, epoch_wall: float) -> int:
+    """A trace timestamp (microseconds since the epoch pair) in Unix-epoch
+    nanoseconds, the clock of ``torch.profiler``'s event times."""
+    return round(epoch_wall * 1e9 + ts_us * 1e3)
+
+
 def to_chrome(events: list[dict]) -> dict:
-    """Wrap trace events into the object form Chrome/Perfetto load directly."""
-    return {"traceEvents": events, "displayTimeUnit": "ms"}
+    """Wrap trace events into the object form Chrome/Perfetto load directly;
+    the epoch pair, where the trace has one, goes under ``otherData``."""
+    out = {"traceEvents": events, "displayTimeUnit": "ms"}
+    pair = epoch(events)
+    if pair is not None:
+        out["otherData"] = {"epoch_wall": pair.get("wall"), "epoch_perf": pair.get("perf")}
+    return out
 
 
 def export_chrome(jsonl_path: str, out_path: str) -> int:
@@ -390,7 +477,10 @@ def export_chrome(jsonl_path: str, out_path: str) -> int:
 
     Returns the number of events exported.
     """
-    events = load_events(jsonl_path)
+    return _dump_chrome(load_events(jsonl_path), out_path)
+
+
+def _dump_chrome(events: list[dict], out_path: str) -> int:
     directory = os.path.dirname(out_path)
     if directory:
         os.makedirs(directory, exist_ok=True)

@@ -12,6 +12,16 @@ is later work.
 eager.  ``capture_serve_step`` is the port's counterpart of the reference's
 ``jax.jit(serve_step)``: ``serve_step_in_place``, the same step over fixed
 buffers, captured once as a CUDA graph and replayed.  ``make_prefill_step`` is the logits-only forward of the prefill.
+
+Both record their phases (``repro_torch.phases``): a training step
+``train.step`` (its host time is the host's dispatch of the step: nothing
+in it waits for the device) around ``train.forward`` (``loss_fn``),
+``train.backward`` (``autograd.grad``, the remat's recompute included) and
+``train.optimizer`` (``adamw_update``), those three on the device's clock
+too, and the counter ``train.steps``; a capture ``serve.capture.warmup``
+(the eager step) and ``serve.capture.record`` (the ``torch.cuda.graph``
+block, which waits for the device, empties the allocator's cache and
+records the step while the device idles).
 """
 
 from __future__ import annotations
@@ -23,6 +33,7 @@ import torch
 from torch.distributed.tensor import DTensor
 
 from repro_torch import distributed as D
+from repro_torch import phases
 from repro_torch.models import transformer as T
 from repro_torch.models.kvcache import advance
 from repro_torch.models.config import ModelConfig
@@ -57,13 +68,21 @@ def _like(g, p):
     return g
 
 
-def value_and_grad(cfg: ModelConfig, params, batch: dict):
+def value_and_grad(cfg: ModelConfig, params, batch: dict, microbatch: int | None = None):
     """(loss, metrics, grads) of ``T.loss_fn`` at ``params``, which are left as
-    they were; the gradients have the parameters' dtypes and tree."""
+    they were; the gradients have the parameters' dtypes and tree.
+    ``microbatch`` is the index that the phases' spans carry, if any."""
     flat = [p.detach().requires_grad_() for p in tree_leaves(params)]
+    device = batch["tokens"].device
     with torch.enable_grad():
-        loss, metrics = T.loss_fn(tree_unflatten(params, flat), cfg, batch)
-        grads = torch.autograd.grad(loss, flat, allow_unused=True)
+        with phases.phase("train.forward", device) as ph:
+            if ph and microbatch is not None:
+                ph.set(microbatch=microbatch)
+            loss, metrics = T.loss_fn(tree_unflatten(params, flat), cfg, batch)
+        with phases.phase("train.backward", device) as ph:
+            if ph and microbatch is not None:
+                ph.set(microbatch=microbatch)
+            grads = torch.autograd.grad(loss, flat, allow_unused=True)
     grads = [torch.zeros_like(p) if g is None else _like(g, p) for p, g in zip(flat, grads)]
     return loss.detach(), {k: v.detach() for k, v in metrics.items()}, tree_unflatten(params, grads)
 
@@ -76,25 +95,30 @@ def make_train_step(
 ):
     def train_step(params, opt_state, batch):
         """Metrics are 0-d device tensors: loss, ce, aux, grad_norm, lr."""
-        if n_microbatches == 1:
-            loss, metrics, grads = value_and_grad(cfg, params, batch)
-        else:
-            micro = _split_microbatches(batch, n_microbatches)
-            grads = tree_map(lambda p: torch.zeros(p.shape, dtype=torch.float32, device=p.device), params)
-            loss = 0.0
-            metrics_acc = []
-            for i in range(n_microbatches):
-                mb = {k: v[i] for k, v in micro.items()}
-                li, mi, gi = value_and_grad(cfg, params, mb)
-                grads = tree_map(lambda a, b: a + b, grads, gi)
-                loss = loss + li
-                metrics_acc.append(mi)
-            grads = tree_map(lambda g: g / n_microbatches, grads)
-            loss = loss / n_microbatches
-            metrics = {k: torch.mean(torch.stack([m[k] for m in metrics_acc])) for k in metrics_acc[0]}
-        if grad_transform is not None:
-            grads = grad_transform(grads)
-        new_params, new_opt, om = adamw_update(params, grads, opt_state, opt_cfg)
+        with phases.phase("train.step") as step:
+            if step:
+                step.set(step_id=phases.counter("train.steps").value + 1)
+            if n_microbatches == 1:
+                loss, metrics, grads = value_and_grad(cfg, params, batch)
+            else:
+                micro = _split_microbatches(batch, n_microbatches)
+                grads = tree_map(lambda p: torch.zeros(p.shape, dtype=torch.float32, device=p.device), params)
+                loss = 0.0
+                metrics_acc = []
+                for i in range(n_microbatches):
+                    mb = {k: v[i] for k, v in micro.items()}
+                    li, mi, gi = value_and_grad(cfg, params, mb, microbatch=i)
+                    grads = tree_map(lambda a, b: a + b, grads, gi)
+                    loss = loss + li
+                    metrics_acc.append(mi)
+                grads = tree_map(lambda g: g / n_microbatches, grads)
+                loss = loss / n_microbatches
+                metrics = {k: torch.mean(torch.stack([m[k] for m in metrics_acc])) for k in metrics_acc[0]}
+            if grad_transform is not None:
+                grads = grad_transform(grads)
+            with phases.phase("train.optimizer", batch["tokens"].device):
+                new_params, new_opt, om = adamw_update(params, grads, opt_state, opt_cfg)
+        phases.count("train.steps")
         return new_params, new_opt, {"loss": loss, **metrics, **om}
 
     return train_step
@@ -171,12 +195,14 @@ def capture_serve_step(cfg: ModelConfig, params, cache: dict, batch: dict) -> Gr
     if not tokens.is_cuda or tokens.shape[1] != 1:
         raise ValueError(f"capture_serve_step takes (B, 1) CUDA tokens, got {tuple(tokens.shape)} "
                          f"on {tokens.device}")
-    side = torch.cuda.Stream(device=tokens.device)
-    side.wait_stream(torch.cuda.current_stream(tokens.device))
-    with torch.cuda.stream(side):
-        serve_step_in_place(cfg, params, cache, tokens)
-    torch.cuda.current_stream(tokens.device).wait_stream(side)
+    with phases.phase("serve.capture.warmup"):
+        side = torch.cuda.Stream(device=tokens.device)
+        side.wait_stream(torch.cuda.current_stream(tokens.device))
+        with torch.cuda.stream(side):
+            serve_step_in_place(cfg, params, cache, tokens)
+        torch.cuda.current_stream(tokens.device).wait_stream(side)
     graph = torch.cuda.CUDAGraph()
-    with torch.cuda.graph(graph):
-        logits = serve_step_in_place(cfg, params, cache, tokens)
+    with phases.phase("serve.capture.record"):
+        with torch.cuda.graph(graph):
+            logits = serve_step_in_place(cfg, params, cache, tokens)
     return GraphStep(graph=graph, tokens=tokens, logits=logits)

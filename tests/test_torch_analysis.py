@@ -57,12 +57,18 @@ def test_port_linter_agrees_with_the_reference_on_every_reference_file(rel):
         (f.rule, f.line) for f in ref.findings)
 
 
+#: port modules a rule covers beyond the reference's scope, renamed: the phase
+#: recorder's call sites (``repro_torch.phases``), which have no reference counterpart
+PORT_ONLY_SCOPE = {"obs-zero-overhead": ("repro_torch.train", "repro_torch.kernels", "repro_torch.phases")}
+
+
 def test_every_reference_rule_is_kept_with_the_port_scopes():
     ref = {r.name: r for r in ref_rules()}
     port = {r.name: r for r in all_rules()}
     assert set(port) == set(ref) | {"no-eager-torch"}
     for name, rule in ref.items():
-        assert port[name].scope == tuple(_as_port(f"{s}.")[:-1] for s in rule.scope), name
+        want = tuple(_as_port(f"{s}.")[:-1] for s in rule.scope) + PORT_ONLY_SCOPE.get(name, ())
+        assert port[name].scope == want, name
         assert port[name].description == _as_port(rule.description), name
     assert port["no-eager-torch"].scope == port["no-eager-jax"].scope
     assert all(s.startswith("repro_torch.") for r in port.values() for s in r.scope)

@@ -28,8 +28,6 @@ VERBATIM = (
     "api/registry.py",
     "api/cache.py",
     "obs/__init__.py",
-    "obs/trace.py",
-    "obs/metrics.py",
     "core/__init__.py",
     "core/batch.py",
     "core/prs.py",
@@ -45,7 +43,6 @@ VERBATIM = (
     "core/advisor.py",
     "api/campaign.py",
     "api/hub.py",
-    "obs/report.py",
     "runtime/__init__.py",
     "runtime/stats.py",
     "runtime/health.py",
@@ -82,6 +79,19 @@ PATCHED = {
     ),
     # the H100's datasheet figures added beside V5E_HW; no line dropped
     "roofline/analysis.py": (),
+    # Histogram.values(): a copy of the window, for readers that take exact samples
+    "obs/metrics.py": (),
+    # a self-time column, the wall-clock epoch in --chrome output, and metrics snapshots rendered
+    "obs/report.py": (
+        "Reads the append-only JSONL trace written by :class:`repro_torch.obs.Tracer`,\n",
+        "call count, total/mean/min/max milliseconds, and percent of the trace's wall\n",
+        "window (first event start -> last event end).  ``--chrome`` additionally\n",
+        "exports the Chrome/Perfetto ``trace_event`` JSON next to the table.\n",
+        'this phase live", not "exclusive self time".\n',
+        "              f\"{'mean_ms':>9}  {'min_ms':>9}  {'max_ms':>9}  {'%wall':>6}\")\n",
+        "            f\"{row['max_us']/1e3:>9.3f}  {pct:>6.1f}\"\n",
+        '    ap.add_argument("trace", help="path to the trace .jsonl file")\n',
+    ),
     # a file under src/repro_torch/ names a module of the port
     "analysis/engine.py": (
         '    if "repro" in parts:\n',
@@ -102,6 +112,9 @@ DIVERGENT = {
     "api/__init__.py": "its docstring's example campaign runs torch_device, on the card",
     "serving/server.py": "a device field; backends torch or numpy, and network cache keys "
                          "scoped for torch with a log target (rtol 1e-12, not bitwise)",
+    "obs/trace.py": "an in-memory Tracer(None), span ids with their parent and root, the epoch pair "
+                    "as the trace's first record and in the Chrome export, wall_ns onto the "
+                    "profiler's clock, and Chrome exports read back (tests/test_torch_phases.py)",
     "analysis/rules.py": "every scope names the port's modules (repro_torch.*), and no-eager-torch, "
                          "the torch counterpart of no-eager-jax (tests/test_torch_analysis.py), whose "
                          "heavy modules name distributed, launch.mesh and launch.train as the "

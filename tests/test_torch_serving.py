@@ -13,6 +13,7 @@ subprocess, and the trace report.
 
 import json
 import os
+import re
 import signal
 import subprocess
 import sys
@@ -251,10 +252,23 @@ def test_the_launcher_serves_the_hub_on_the_cpu_and_drains_on_sigint(hub_dir, qu
     assert got == [float(v) for v in direct]
 
 
+def _without_self_column(table: str) -> str:
+    """The port's report table with its ``self_ms`` column (12 characters before ``%wall``) cut out."""
+    lines = []
+    for line in table.split("\n"):
+        if line and set(line) == {"-"}:
+            line = line[:-12]
+        elif line.endswith("%wall") or re.search(r" \d+\.\d$", line):
+            line = line[:-20] + line[-8:]
+        lines.append(line)
+    return "\n".join(lines)
+
+
 def test_both_reports_render_one_trace_alike(hub_dir, queries, tmp_path, capsys):
     """A trace of the port's server answering queries, rendered by the
-    port's ``obs.report`` and by the reference's: the same table, and the
-    same Chrome export."""
+    port's ``obs.report`` and by the reference's: the same table but for the
+    port's self-time column, and the same Chrome export but for the port's
+    wall-clock epoch under ``otherData``."""
     layers, nets = queries
     trace = str(tmp_path / "serve.jsonl")
     with tobs.tracing(trace):
@@ -269,6 +283,8 @@ def test_both_reports_render_one_trace_alike(hub_dir, queries, tmp_path, capsys)
         out[name] = capsys.readouterr().out.replace(chrome, "OUT")
         with open(chrome) as f:
             out[name + "_chrome"] = json.load(f)
-    assert out["port"] == out["ref"] and "serve.predict" in out["port"]
+    assert _without_self_column(out["port"]) == out["ref"] and "serve.predict" in out["port"]
+    assert "self_ms" in out["port"]
+    assert set(out["port_chrome"].pop("otherData")) == {"epoch_wall", "epoch_perf"}
     assert out["port_chrome"] == out["ref_chrome"]
     assert jobs.load_events(trace) == tobs.load_events(trace)
