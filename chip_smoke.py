@@ -39,6 +39,13 @@ Phases, each failing loudly (an exception or a non-zero exit):
    launching the forward and then the backward kernel; ``matmul_f32``'s
    gradients at the lm_head's training shape against autograd of the fp32
    product (``MATMUL_GRAD_TOL``); flash attention's refusal of autograd;
+3c. the Mamba2 mixer's two kernels (``csrc/ssm_mixer.cu``) against their
+   plain versions by ``tests/test_torch_ssm_card.py`` in a subprocess; then,
+   at mamba2-780m.prompt-2k's prefill shape (``MIXER_SHAPE``), each of them
+   against its plain chain on the same inputs by the card tests' bars and
+   both by CUDA-graph replay, beside the kernel's byte bound
+   (``check_ssm_mixer``; the ``{"ssm_mixer": ...}`` line, which also carries
+   each slice's launches);
 4. the slices, each at full width and full depth with random bf16 weights
    from a seeded ``torch.Generator``, serving batch 4, prompt 512, gen 32
    through ``repro_torch.launch.serve.generate``:
@@ -47,12 +54,14 @@ Phases, each failing loudly (an exception or a non-zero exit):
      layer, in the cached prefill); the prefill logits against the same
      prefill through the plain chunked attention route;
    * mamba2-780m (48 layers): 48 SSD-scan launches (one per layer, in the
-     prefill; decode runs the O(1) recurrence in plain PyTorch); each of the
-     prefill's 48 scan calls against its plain version on the same inputs,
-     and the prefill logits against the same prefill with the scan's plain
-     version in place of the kernel (inside this script only, restored
-     afterwards), measured against the plain route's own gap under another
-     chunking (see ``SSM_FLOOR_FACTOR``);
+     prefill; decode runs the O(1) recurrence in plain PyTorch) and 144 of
+     each of the mixer's two kernels (``expected_launches``); each of the
+     prefill's 48 scan calls and 48 calls of each mixer kernel against its
+     plain version on the same inputs, and the prefill logits against the
+     same prefill with the plain versions of the scan and the mixer's chain
+     in place of the kernels (inside this script only, restored afterwards),
+     measured against the plain route's own gap under another chunking (see
+     ``SSM_FLOOR_FACTOR``);
    * olmoe-1b-7b (16 layers, 64 experts, top-8) on the flash route: 16 flash
      launches; the prefill logits against the plain chunked route, where
      routing flips between the two routes measured against the plain route's
@@ -62,7 +71,8 @@ Phases, each failing loudly (an exception or a non-zero exit):
      block, inside this script only); ``moe_block`` at its decode and prefill
      shapes under ``torch.cuda.set_sync_debug_mode("error")``;
    * zamba2-2.7b (54 mamba layers in nine groups, each followed by the one
-     shared attention block, head dim 80): 54 SSD-scan and 9 flash launches;
+     shared attention block, head dim 80): 54 SSD-scan, 9 flash and 162 of
+     each mixer kernel's launches;
      the prefill logits against the plain route (plain scan and chunked
      attention), measured against the plain route's own gap under scan chunk
      64 and xla_full attention (see ``HYBRID_FLOOR_FACTOR``);
@@ -77,11 +87,13 @@ Phases, each failing loudly (an exception or a non-zero exit):
      cross-attention are not causal and take the chunked route, as in the
      reference; every decode step reads the encoder's K/V from the cache.
 
-   Every flash and scan call of each prefill is held against its plain
-   version on the same inputs (the kernel's bf16 bar).
+   Every flash, scan and mixer-kernel call of each prefill is held against
+   its plain version on the same inputs (the kernel's bf16 bar; the mixer's
+   kernels by the card tests' bars).
 
    ``generate`` runs the prefill eager and the decode step as a captured
-   CUDA graph, replayed through no wrapper (decode launches neither kernel).
+   CUDA graph, replayed through no wrapper (decode launches neither flash
+   nor the scan; its mamba layers run the mixer's two kernels of phase 3c).
    Every launch counter is set to 0 just before ``generate`` and read just
    after; each kernel must show its launches of the slice
    (``expected_launches``) and no more.  The first generated token must be
@@ -158,14 +170,16 @@ Phases, each failing loudly (an exception or a non-zero exit):
 8. training (after 6c): (a) reduced mamba2-780m and qwen2-1.5b (remat
    "full", batch 2, seq 200): one train step on the card against the same
    step on the CPU, loss, grad norm and every gradient leaf within
-   ``TRAIN_REL_L2``, and the scan launches the layers dictate; (b)
+   ``TRAIN_REL_L2``, and the scan launches the layers dictate (and no
+   mixer kernel); (b)
    mamba2-780m at full width and depth through ``repro_torch.launch.train``'s
    ``Trainer``, batch 2 x 4,096 (``train_4k``'s sequence), random fp32
    masters from a seeded ``torch.Generator``, ``AdamWConfig(lr=1e-3,
    warmup_steps=0, total_steps=8)``: a run checkpointing every 2 steps fails
    at step 5 and resumes from step 4, and an uninterrupted run beside it
    must launch the forward scan 96 times a step (48 layers, and again in
-   remat's recompute) and the backward 48 times, with finite losses, the
+   remat's recompute) and the backward 48 times, and neither of the mixer's
+   kernels (training runs their plain chain), with finite losses, the
    last below the first, and the resumed losses and final parameters within
    ``RESUME_TOL`` of it; (c) qwen2-1.5b at full width and depth, 3 steps of
    ``make_train_step`` at the same shape, launching no kernel of the port.
@@ -292,6 +306,10 @@ TRAIN_BATCH, TRAIN_SEQ = 2, 4096  # train_4k's sequence: 32 scan chunks a row
 # qwen2-1.5b's steps, and the kernels a training step may launch
 TRAIN_STEPS, TRAIN_CKPT_EVERY, TRAIN_FAIL_AT, QWEN_TRAIN_STEPS = 8, 2, 5, 3
 TRAIN_KERNELS = ("flash_attention", "ssd_scan", "ssd_scan_bwd")
+# The Mamba2 mixer's two kernels: serving launches them, a training step never
+MIXER_KERNELS = ("ssm_conv_gate_in", "ssm_gate_norm")
+# Every wrapper whose launches a phase counts
+COUNTED_KERNELS = (*TRAIN_KERNELS, *MIXER_KERNELS)
 # A reduced train step on the card against the CPU: loss, grad norm and every
 # gradient leaf within a relative (L2) 2e-2, the CPU tests' bar against the
 # reference (tests/test_torch_train.py); the card runs the bf16 scan kernels
@@ -302,7 +320,9 @@ TRAIN_REL_L2 = 2e-2
 # exactly; 1e-6 admits a library GEMM that picks another algorithm.
 RESUME_TOL = 1e-6
 WHISPER_PROMPT = 416  # prompt + GEN = 448 positions, whisper's decoder context
-KERNELS = ("flash_attention", "ssd_scan")
+# The kernels a generate launches; the first two are also timed at each slice's shapes
+KERNELS = ("flash_attention", "ssd_scan", *MIXER_KERNELS)
+SLICE_TIMED = KERNELS[:2]
 SLICES = {  # arch -> (prompt length at full width, reduced prompt length for the card-vs-CPU check)
     "qwen2-1.5b": (PROMPT, 24),
     "mamba2-780m": (PROMPT, 200),
@@ -608,6 +628,77 @@ def check_ssd() -> dict:
     return slice_err
 
 
+MIXER_SHAPE = (32, 2032, 48, 64, 128, 4)  # mamba2-780m.prompt-2k's prefill: batch, seq, heads, head dim, state, taps
+
+
+def check_ssm_mixer() -> dict:
+    """Phase 3c: the Mamba2 mixer's two kernels (``csrc/ssm_mixer.cu``) against their plain
+    versions by ``tests/test_torch_ssm_card.py`` (pytest in a subprocess: bit for bit in
+    99.9 % of elements and within one step of the dtype, or within one bf16 step, at
+    four shapes), then timed (``time_ssm_mixer``)."""
+    import os
+
+    t0 = time.perf_counter()
+    proc = subprocess.run(
+        [sys.executable, "-m", "pytest", "-q", "--noconftest", "-p", "no:cacheprovider",
+         "tests/test_torch_ssm_card.py"],
+        capture_output=True, text=True, timeout=600, cwd=ROOT, env={**os.environ, "PYTHONPATH": str(SRC)},
+    )
+    summary = (proc.stdout.strip().splitlines() or [""])[-1]
+    log(f"tests/test_torch_ssm_card.py: exit {proc.returncode}, {summary}")
+    if proc.returncode != 0:
+        raise AssertionError(f"the mixer's kernels fail their card tests:\n{proc.stdout[-4000:]}{proc.stderr[-2000:]}")
+    return {**time_ssm_mixer(), "card_tests": summary, "seconds": time.perf_counter() - t0}
+
+
+def time_ssm_mixer() -> dict:
+    """Each of the mixer's kernels against its plain chain on the same inputs at ``MIXER_SHAPE``
+    (the card tests' bars: ``mixer_front_ok``, ``mixer_back_ok``), then both by CUDA-graph
+    replay, beside the kernel's byte bound (``costs.ssm_conv_gate_in_cost``,
+    ``costs.ssm_gate_norm_cost``)."""
+    import torch
+
+    from repro_torch.kernels import costs, ops, ref
+
+    b, s, h, p, n, k = MIXER_SHAPE
+    ci, bf = h * p, torch.bfloat16
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 5)
+
+    def rnd(*shape, scale=1.0):
+        return (torch.randn(shape, generator=gen, device="cuda") * scale).to(bf)
+
+    f32 = dict(dtype=torch.float32, device="cuda")
+    front = (rnd(b, s, ci), rnd(b, s, n), rnd(b, s, n), rnd(b, s, h), rnd(k, ci, scale=0.5), rnd(ci, scale=0.1),
+             rnd(k, n, scale=0.5), rnd(n, scale=0.1), rnd(k, n, scale=0.5), rnd(n, scale=0.1),
+             torch.full((h,), math.log(math.expm1(0.01)), **f32), torch.log(torch.linspace(1.0, 16.0, h, **f32)),
+             torch.zeros((b, k - 1, ci), **f32), torch.zeros((b, k - 1, n), **f32), torch.zeros((b, k - 1, n), **f32))
+    back = (rnd(b, s, h, p), front[0], rnd(b, s, ci), torch.ones((h,), **f32), torch.ones((ci,), **f32), 1e-5)
+    out = {"shape": {"b": b, "s": s, "h": h, "p": p, "n": n, "k": k}}
+    for name, kernel, plain, args, cost, bars in (
+        ("ssm_conv_gate_in", ops.ssm_conv_gate_in, ref.ssm_conv_gate_in_ref, front,
+         costs.ssm_conv_gate_in_cost(b, s, ci, n, h, k, True), mixer_front_ok),
+        ("ssm_gate_norm", ops.ssm_gate_norm, ref.ssm_gate_norm_ref, back, costs.ssm_gate_norm_cost(b, s, ci, h, True),
+         mixer_back_ok),
+    ):
+        got = kernel(*args)
+        torch.cuda.synchronize()
+        ok, same, steps = bars(got, plain(*args))
+        torch.cuda.synchronize()
+        del got
+        log(f"kernel {name} at prompt-2k's shape against its plain chain on the same inputs: least share "
+            f"bit-equal {same:.6f}, most steps apart {steps} {'ok' if ok else 'FAIL'}")
+        if not ok:
+            raise AssertionError(f"{name} disagrees with its plain chain at prompt-2k's shape")
+        ms, plain_ms = graph_ms(lambda: kernel(*args)), graph_ms(lambda: plain(*args), calls=5)
+        bound_ms, bound_by = _bound(*cost, bf)
+        out[name] = {"ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by,
+                     "bound_share": bound_ms / ms, "bytes": cost[0], "share_bit_equal": same, "most_steps_apart": steps}
+        log(f"kernel {name} at prompt-2k's shape (b {b}, s {s}, width {ci}, state {n}): {ms:.4f} ms a call by "
+            f"CUDA-graph replay, plain chain {plain_ms:.4f} ms, bound {bound_ms:.4f} ms ({bound_by}, "
+            f"{cost[0] / 1e9:.3f} GB), bound share {bound_ms / ms:.3f}")
+    return out
+
+
 # The backward kernel's bars, each scaled by the largest magnitude of the
 # gradient it holds (gradients of long chunks sum many terms, so an absolute
 # bar fixed in advance would be loose for some and tight for others): fp32
@@ -835,14 +926,18 @@ def expected_launches(cfg) -> dict:
     """Each kernel's launches in one ``generate``: one per causal attention
     layer of the prefill (whisper's encoder and cross-attention are not
     causal; zamba2 runs its shared block once per group) and one scan per
-    mamba layer; decode launches neither."""
+    mamba layer; decode launches neither.  Each of the mixer's two kernels
+    runs three times a mamba layer: in the prefill, in the decode step's
+    eager warm-up and while the graph records (the replays go through no
+    wrapper).  A prefill alone launches each of them once a mamba layer."""
     if cfg.family == "ssm":
         attn = 0
     elif cfg.family == "hybrid":
         attn = cfg.n_layers // cfg.attn_every
     else:
         attn = cfg.n_layers
-    return {"flash_attention": attn, "ssd_scan": cfg.n_layers if cfg.family in ("ssm", "hybrid") else 0}
+    mamba = cfg.n_layers if cfg.family in ("ssm", "hybrid") else 0
+    return {"flash_attention": attn, "ssd_scan": mamba, **dict.fromkeys(MIXER_KERNELS, 3 * mamba)}
 
 
 def slice_extras(cfg, batch: int, seed: int) -> dict:
@@ -895,8 +990,34 @@ def plain_route(cfg, chunk: int | None = None, attention: str = "xla_chunked"):
     def plain(x, la, bm, cm, cfg_chunk, state0=None):
         return ref.ssd_scan_ref(x, la, bm, cm, chunk=chunk or cfg_chunk, state0=state0)
 
-    with scan_replaced(plain):
+    def gate_in(*args):
+        return ref.ssm_conv_gate_in_ref(*args)
+
+    def gate_norm(*args):
+        return ref.ssm_gate_norm_ref(*args)
+
+    with scan_replaced(plain), mixer_replaced(gate_in, gate_norm):
         yield run_cfg
+
+
+@contextlib.contextmanager
+def mixer_replaced(gate_in, gate_norm):
+    """Run the Mamba2 mixer's chain through ``gate_in`` and ``gate_norm`` in place of
+    ``ops.ssm_conv_gate_in`` and ``ops.ssm_gate_norm`` inside the block; restore them after.
+    The kernels count their launches on the module's names, so each count moves to the
+    replacement while it stands there, and back."""
+    from repro_torch.kernels import ops
+
+    kept = (ops.ssm_conv_gate_in, ops.ssm_gate_norm)
+    for new, old in zip((gate_in, gate_norm), kept):
+        new.launches = old.launches
+    ops.ssm_conv_gate_in, ops.ssm_gate_norm = gate_in, gate_norm
+    try:
+        yield
+    finally:
+        for new, old in zip((gate_in, gate_norm), kept):
+            old.launches = new.launches
+        ops.ssm_conv_gate_in, ops.ssm_gate_norm = kept
 
 
 @contextlib.contextmanager
@@ -925,11 +1046,13 @@ def flashes_checked(errors: list):
         ops.flash_attention = kernel
 
 
-def kernels_checked(stack: contextlib.ExitStack, cfg, scan_errors: list, flash_errors: list) -> None:
+def kernels_checked(stack: contextlib.ExitStack, cfg, scan_errors: list, flash_errors: list,
+                    mixer_errors: list) -> None:
     """Enter the checks of every kernel that ``cfg``'s prefill launches."""
     expected = expected_launches(cfg)
     if expected["ssd_scan"]:
         stack.enter_context(scans_checked(scan_errors))
+        stack.enter_context(mixers_checked(mixer_errors))
     if expected["flash_attention"]:
         stack.enter_context(flashes_checked(flash_errors))
 
@@ -960,6 +1083,80 @@ def scans_checked(errors: list):
 
     with scan_replaced(checked):
         yield
+
+
+def mixer_bars():
+    """``steps_apart`` of the mixer's card tests (``tests/torch_ssm_mixer_cases.py``) and the
+    names of the front kernel's outputs, whose first five are values and last three conv buffers."""
+    if str(ROOT / "tests") not in sys.path:
+        sys.path.insert(0, str(ROOT / "tests"))
+    from torch_ssm_mixer_cases import FRONT_OUTS, steps_apart
+
+    return steps_apart, FRONT_OUTS
+
+
+def mixer_front_ok(got, want) -> tuple[bool, float, int]:
+    """The front kernel's bars against its plain chain on the same inputs, as the card tests hold
+    it: each value output equal bit for bit in at least 99.9 % of elements and within one step of
+    its dtype everywhere, the conv buffers equal.  -> (ok, least share equal, most steps apart)."""
+    import torch
+
+    steps_apart, outs = mixer_bars()
+    gaps = [steps_apart(g, w) for g, w in zip(got[:5], want[:5])]
+    buffers = all(g.dtype == w.dtype and torch.equal(g, w) for g, w in zip(got[5:], want[5:]))
+    same, steps = min(g[0] for g in gaps), max(g[1] for g in gaps)
+    return buffers and len(got) == len(want) == len(outs) and same >= 0.999 and steps <= 1, same, steps
+
+
+def mixer_back_ok(got, want) -> tuple[bool, float, int]:
+    """The back kernel's bar against its plain chain on the same inputs: within one bf16 step
+    everywhere.  -> (ok, share equal, most steps apart)."""
+    steps_apart, _ = mixer_bars()
+    same, steps = steps_apart(got, want)
+    return steps <= 1, same, steps
+
+
+@contextlib.contextmanager
+def mixers_checked(errors: list):
+    """Hold every call of the mixer's two kernels against its plain chain on the same inputs
+    (``mixer_front_ok``, ``mixer_back_ok``); each record is (kernel, share equal, most steps
+    apart, ok)."""
+    from repro_torch.kernels import ops, ref
+
+    front, back = ops.ssm_conv_gate_in, ops.ssm_gate_norm
+
+    def gate_in(*args):
+        got = front(*args)
+        ok, same, steps = mixer_front_ok(got, ref.ssm_conv_gate_in_ref(*args))
+        errors.append(("ssm_conv_gate_in", same, steps, ok))
+        return got
+
+    def gate_norm(*args):
+        got = back(*args)
+        ok, same, steps = mixer_back_ok(got, ref.ssm_gate_norm_ref(*args))
+        errors.append(("ssm_gate_norm", same, steps, ok))
+        return got
+
+    with mixer_replaced(gate_in, gate_norm):
+        yield
+
+
+def mixer_summary(errors: list) -> str:
+    """One line on a prefill's mixer-kernel calls held against their plain chain."""
+    parts = []
+    for name in MIXER_KERNELS:
+        mine = [e for e in errors if e[0] == name]
+        if mine:
+            parts.append(f"each of {len(mine)} {name} calls vs its plain chain on the same inputs: least share "
+                         f"bit-equal {min(e[1] for e in mine):.6f}, most steps apart {max(e[2] for e in mine)}, "
+                         f"{sum(bool(e[-1]) for e in mine)} of {len(mine)} ok")
+    return "; ".join(parts) or "no mixer calls"
+
+
+def mixer_calls_ok(errors: list, cfg) -> bool:
+    """Every mixer call within its bars, and one call of each kernel a mamba layer."""
+    want = expected_launches(cfg)["ssd_scan"]
+    return all(e[-1] for e in errors) and all(sum(e[0] == name for e in errors) == want for name in MIXER_KERNELS)
 
 
 @contextlib.contextmanager
@@ -1084,13 +1281,13 @@ def check_reduced_against_cpu(arch: str, prompt: int) -> bool:
         with torch.no_grad(), ctx:
             return T.forward(params, run_cfg, batch, cache)[0].cpu()
 
-    routes, block_errors, scan_errors, flash_errors = {"cpu": [], "cuda": []}, [], [], []
+    routes, block_errors, scan_errors, flash_errors, mixer_errors = {"cpu": [], "cuda": []}, [], [], [], []
     cpu = logits_on("cpu", params_cpu, cfg, moe_recorded(routes["cpu"]) if moe_family else contextlib.nullcontext())
     with contextlib.ExitStack() as stack:
         if moe_family:
             stack.enter_context(moe_blocks_checked(block_errors, routes["cuda"]))
         if new_family:
-            kernels_checked(stack, cfg, scan_errors, flash_errors)
+            kernels_checked(stack, cfg, scan_errors, flash_errors, mixer_errors)
         card = logits_on("cuda", params_gpu, cfg)
     err = (card - cpu).abs().max().item()
     ok = torch.allclose(card, cpu, **BF16_TOL)
@@ -1104,9 +1301,11 @@ def check_reduced_against_cpu(arch: str, prompt: int) -> bool:
         floor = (other - plain).abs().max().item()
         expected = expected_launches(cfg)
         calls_ok = (all(e[-1] for e in flash_errors + scan_errors)
-                    and len(flash_errors) == expected["flash_attention"] and len(scan_errors) == expected["ssd_scan"])
+                    and len(flash_errors) == expected["flash_attention"] and len(scan_errors) == expected["ssd_scan"]
+                    and (not expected["ssd_scan"] or mixer_calls_ok(mixer_errors, cfg)))
         log(f"reduced {arch} on the card: {checked_summary('flash_attention', flash_errors, BF16_TOL)}; "
-            f"{checked_summary('ssd_scan', scan_errors, SSD_BF16_TOL)}; the CPU's plain routes against each "
+            f"{checked_summary('ssd_scan', scan_errors, SSD_BF16_TOL)}; {mixer_summary(mixer_errors)}; "
+            f"the CPU's plain routes against each "
             f"other: max abs {floor:.3e}; card vs CPU {err:.3e} = {err / floor:.3f} x that (bar "
             f"{HYBRID_FLOOR_FACTOR:g} x where {BF16_TOL} is missed)")
         return calls_ok and (ok or err <= HYBRID_FLOOR_FACTOR * floor)
@@ -1229,11 +1428,12 @@ def serve_slice(arch: str) -> tuple[dict, dict]:
 
     scan_errors: list = []
     flash_errors: list = []
+    mixer_errors: list = []
     routes = {"flash": [], "xla_chunked": [], "xla_full": []}
     moe_line, prefill_ok = None, True
     with torch.no_grad():
         with contextlib.ExitStack() as stack:
-            kernels_checked(stack, cfg, scan_errors, flash_errors)
+            kernels_checked(stack, cfg, scan_errors, flash_errors, mixer_errors)
             stack.enter_context(recorded(routes["flash"]))
             logits_k = prefill_logits(cfg)
         with plain_route(cfg) as plain_cfg, recorded(routes["xla_chunked"]):
@@ -1247,11 +1447,13 @@ def serve_slice(arch: str) -> tuple[dict, dict]:
         f"max abs {(logits_k - logits_p).abs().max().item():.3e}, "
         f"|logits| max {logits_p.abs().max().item():.3f}, argmax agreement {agree:.4f}")
     log(f"{arch} prefill, {checked_summary('flash_attention', flash_errors, BF16_TOL)}; "
-        f"{checked_summary('ssd_scan', scan_errors, SSD_BF16_TOL)}")
+        f"{checked_summary('ssd_scan', scan_errors, SSD_BF16_TOL)}; {mixer_summary(mixer_errors)}")
     assert len(flash_errors) == expected["flash_attention"] and len(scan_errors) == expected["ssd_scan"], \
         f"{arch}: {len(flash_errors)} flash and {len(scan_errors)} scan calls in the prefill"
     assert all(e[-1] for e in flash_errors), f"{arch}: a flash_attention call disagrees with its plain version"
     assert all(e[-1] for e in scan_errors), f"{arch}: an ssd_scan call disagrees with its plain version"
+    assert not expected["ssd_scan"] or mixer_calls_ok(mixer_errors, cfg), \
+        f"{arch}: the prefill's mixer calls miss their count or their bars: {mixer_summary(mixer_errors)}"
     floor = None
     if cfg.family in ("ssm", "hybrid"):
         factor = SSM_FLOOR_FACTOR if cfg.family == "ssm" else HYBRID_FLOOR_FACTOR
@@ -2367,13 +2569,13 @@ def rel_l2(got, want) -> float:
 def kernel_counts() -> dict:
     from repro_torch.kernels import ops
 
-    return {name: getattr(ops, name).launches for name in TRAIN_KERNELS}
+    return {name: getattr(ops, name).launches for name in COUNTED_KERNELS}
 
 
 def zero_kernel_counts() -> None:
     from repro_torch.kernels import ops
 
-    for name in TRAIN_KERNELS:
+    for name in COUNTED_KERNELS:
         getattr(ops, name).launches = 0
 
 
@@ -2405,7 +2607,8 @@ def check_train_reduced(arch: str) -> dict:
     (loss_c, norm_c, g_c, _), (loss_g, norm_g, g_g, counts) = runs["cpu"], runs["cuda"]
     leaf_errs = [rel_l2(a, b) for a, b in zip(g_g, g_c)]
     n_layers = cfg.n_layers if cfg.family == "ssm" else 0
-    want = {"ssd_scan": 2 * n_layers, "ssd_scan_bwd": n_layers, "flash_attention": 0}
+    want = {"ssd_scan": 2 * n_layers, "ssd_scan_bwd": n_layers, "flash_attention": 0,
+            **dict.fromkeys(MIXER_KERNELS, 0)}
     ok = (abs(loss_g - loss_c) <= TRAIN_REL_L2 * abs(loss_c) and abs(norm_g - norm_c) <= TRAIN_REL_L2 * norm_c
           and max(leaf_errs) <= TRAIN_REL_L2 and counts == want
           and all(torch.isfinite(g).all() for g in g_g))
@@ -2540,7 +2743,7 @@ def train_mamba2(smi: str) -> dict:
                                                                tree_leaves(straight.params)))
     del resumed_params
     want = {"ssd_scan": 2 * cfg.n_layers * TRAIN_STEPS, "ssd_scan_bwd": cfg.n_layers * TRAIN_STEPS,
-            "flash_attention": 0}
+            "flash_attention": 0, **dict.fromkeys(MIXER_KERNELS, 0)}
     step_fn = make_train_step(cfg, opt_cfg)
     batch = train_batch_on(cfg, TRAIN_SEQ, TRAIN_BATCH, TRAIN_STEPS, "cuda")
     profile = profile_train_step(lambda: step_fn(straight.params, straight.opt_state, batch),
@@ -2747,9 +2950,10 @@ def main() -> int:
 
     # ---- 2. build, one nvcc per source, all at once
     t0 = time.perf_counter()
-    with ThreadPoolExecutor(len(TRAIN_KERNELS)) as pool:
-        built = dict(zip(TRAIN_KERNELS, pool.map(build.build, TRAIN_KERNELS)))
-    log(f"build: {len(TRAIN_KERNELS)} sources in {time.perf_counter() - t0:.1f} s")
+    to_build = (*TRAIN_KERNELS, "ssm_mixer")
+    with ThreadPoolExecutor(len(to_build)) as pool:
+        built = dict(zip(to_build, pool.map(build.build, to_build)))
+    log(f"build: {len(to_build)} sources in {time.perf_counter() - t0:.1f} s")
     for name, (lib, report, nvcc_s) in built.items():
         log(f"  {lib.name}: nvcc {nvcc_s:.1f} s")
         for line in report.splitlines():
@@ -2765,6 +2969,8 @@ def main() -> int:
     t0 = time.perf_counter()
     checks["ssd_scan_bwd"] = check_ssd_bwd()
     log(f"phase 3b: {time.perf_counter() - t0:.1f} s")
+    # ---- 3c. the mixer's two kernels: card tests, and timed at prompt-2k's shape
+    mixer = check_ssm_mixer()
 
     # ---- 4 and 5. the slices, and each kernel at each of its slices' shapes
     slices, launches = [], {name: {} for name in KERNELS}
@@ -2778,8 +2984,8 @@ def main() -> int:
             if n:
                 launches[name][arch] = n
         torch.cuda.empty_cache()
-    timings = {name: {} for name in KERNELS}
-    for name in KERNELS:
+    timings = {name: {} for name in SLICE_TIMED}
+    for name in SLICE_TIMED:
         for arch in launches[name]:
             timings[name][arch] = time_flash(arch) if name == "flash_attention" else time_ssd(arch)
     train_timing = time_ssd_train()  # the scan's two kernels at the training shape of phase 8
@@ -2836,6 +3042,8 @@ def main() -> int:
         raise AssertionError(f"phase 9 took {dryrun['phase_seconds']:.1f} s, over {DRYRUN_SECONDS} s")
     train_launches = {name: round(n * mamba_train["steps"]) for name, n in mamba_train["launches_per_step"].items()}
     launches["ssd_scan"]["train mamba2-780m"] = train_launches["ssd_scan"]
+    mixer["launches_by_slice"] = {name: {**launches[name], "train mamba2-780m": train_launches[name]}
+                                  for name in MIXER_KERNELS}
     timings["ssd_scan"]["train mamba2-780m"] = train_timing["ssd_scan"]
 
     # ---- 7. result lines
@@ -2852,7 +3060,7 @@ def main() -> int:
     # shape earlier runs timed); "by_slice" holds every slice's, launches included
     # (the training step's as "train mamba2-780m").
     kernels = []
-    for name in KERNELS:
+    for name in SLICE_TIMED:
         by_slice = {arch: {"launches": launches[name][arch], **per_shape(t, checks[name][arch])}
                     for arch, t in timings[name].items()}
         first = next(iter(by_slice.values()))
@@ -2887,6 +3095,7 @@ def main() -> int:
     log(json.dumps({"dryrun_grounding": {**dryrun["grounding"], "phase_seconds": dryrun["phase_seconds"],
                                           "kernel_launches": dryrun["kernel_launches"]}}))
     log(json.dumps({"kernels": kernels}))
+    log(json.dumps({"ssm_mixer": mixer}))
     log(json.dumps({"estimation": estimation}))
     log(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind, "count": count}}))
     return 0

@@ -60,3 +60,27 @@ def ssd_bwd_cost(b: int, s: int, h: int, p: int, n: int, elt: int, chunk: int,
         tri = q * (q + 1) / 2
         flops += b * tri * 2 * n + b * h * (tri * (4 * p + 4 * n) + 10 * q * n * p)
     return float(nbytes), flops
+
+
+def ssm_conv_gate_in_cost(b: int, s: int, ci: int, n: int, h: int, k: int, state: bool) -> tuple[float, float]:
+    """(bytes, FLOPs) of the Mamba2 mixer's chain before the scan (``ops.ssm_conv_gate_in``):
+    x (b, s, ci), B and C (b, s, n), dt (b, s, h), the conv weights and biases, dt_bias and a_log
+    (and the conv states) read, and xs, xbar, B, C, log_da and the new conv states written once,
+    bf16 but for fp32 dt_bias, a_log, log_da and the conv states read.
+
+    FLOPs: the depthwise convolution's products, 2 a tap.
+    """
+    width = ci + 2 * n
+    nbytes = (2 * (b * s * (3 * ci + 4 * n + h) + (k + 1) * width) + 4 * (2 * h + b * s * h)
+              + b * (k - 1) * width * (2 + (4 if state else 0)))
+    return float(nbytes), 2.0 * k * width * b * s
+
+
+def ssm_gate_norm_cost(b: int, s: int, c: int, h: int, norm: bool) -> tuple[float, float]:
+    """(bytes, FLOPs) of the mixer's chain after the scan (``ops.ssm_gate_norm``): y, xs and z
+    (b, s, c) bf16 and d_skip (h) fp32 (and the norm's fp32 scale (c)) read, the output written once.
+
+    FLOPs: the norm's sum of squares, 2 an element (none without the norm).
+    """
+    nbytes = 2 * 4 * b * s * c + 4 * h + (4 * c if norm else 0)
+    return float(nbytes), (2.0 * b * s * c if norm else 0.0)

@@ -7,16 +7,22 @@ launches the hand-written kernel on PyTorch's current stream and raises if
 the launch is refused.  There is no fallback from the kernel to the plain
 version.  Each wrapper counts its kernel's launches in ``<wrapper>.launches``.
 A CUDA-graph replay (``generate``'s decode step) goes through no wrapper, so
-no counter counts it; the decode step launches neither kernel anyway (one
-query takes ``full_attention``, and mamba2 decodes by its recurrence).
+no counter counts it; the decode step launches neither attention nor scan
+kernel (one query takes ``full_attention``, and mamba2 decodes by its
+recurrence), but its mamba layers do launch the mixer's two kernels
+(``ssm_conv_gate_in``, ``ssm_gate_norm``), counted while the graph is
+recorded and not in its replays.
 
 Each launch is also a ``torch.library.custom_op`` (``repro_torch::flash_attention``,
-``repro_torch::ssd_scan_fwd``, ``repro_torch::ssd_scan_bwd``) whose body is
+``repro_torch::ssd_scan_fwd``, ``repro_torch::ssd_scan_bwd``,
+``repro_torch::ssm_conv_gate_in``, ``repro_torch::ssm_gate_norm``) whose body is
 the ctypes launch above, so the dispatcher can trace it: each has a fake
 implementation (shapes only; a fake tensor computes nothing and reaches no
-plain version), a FLOP formula from ``costs.py`` (``torch.utils.flop_counter``
-and the dry run count the work the bounds count) and ``SCRATCH_BYTES``, the
-device scratch its kernel allocates beside its outputs.  A wrapper goes
+plain version); the attention's and the scan's also have a FLOP formula from
+``costs.py`` (``torch.utils.flop_counter`` and the dry run count the work the
+bounds count; it counts no elementwise op, the mixer's kernels included) and
+``SCRATCH_BYTES``, the device scratch their kernels allocate beside their
+outputs.  A wrapper goes
 through the op only when something watches the dispatcher (``_dispatched``:
 a dispatch mode such as fake tensors or FLOP counting, or a tensor subclass
 such as a DTensor); plain CUDA tensors call the launch directly, as before
@@ -38,7 +44,13 @@ import torch
 from torch.utils.flop_counter import register_flop_formula
 
 from repro_torch.kernels import build, costs
-from repro_torch.kernels.ref import flash_attention_ref, ssd_scan_bwd_ref, ssd_scan_ref
+from repro_torch.kernels.ref import (
+    flash_attention_ref,
+    ssd_scan_bwd_ref,
+    ssd_scan_ref,
+    ssm_conv_gate_in_ref,
+    ssm_gate_norm_ref,
+)
 
 _FLASH_DTYPES = (torch.float32, torch.bfloat16)
 _SSD_DTYPES = (torch.float32, torch.bfloat16)
@@ -432,3 +444,232 @@ SCRATCH_BYTES = {
 
 
 ssd_scan_bwd.launches = 0
+
+
+# ------------------------------------------------------------ the Mamba2 mixer's chain
+
+def _mixer_lib() -> ctypes.CDLL:
+    lib = build.load("ssm_mixer")
+    fn = lib.repro_ssm_conv_gate_in
+    fn.argtypes = [ctypes.c_void_p] * 23 + [ctypes.c_int] * 6 + [ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    fn = lib.repro_ssm_gate_norm
+    fn.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 3 + [ctypes.c_float, ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    return lib
+
+
+def _check_cuda_operands(name: str, bf16: dict, fp32: dict) -> None:
+    """A mixer kernel's CUDA operands: one device, bf16 / fp32 as named, contiguous."""
+    tensors = {**bf16, **{k: v for k, v in fp32.items() if v is not None}}
+    devices = {t.device for t in tensors.values()}
+    if len(devices) != 1:
+        raise ValueError(f"{name} inputs on different devices: {devices}")
+    for k, t in bf16.items():
+        if t.dtype != torch.bfloat16:
+            raise TypeError(f"{name} takes bf16 {k} on the card, got {t.dtype}")
+    for k, t in fp32.items():
+        if t is not None and t.dtype != torch.float32:
+            raise TypeError(f"{name} takes fp32 {k} on the card, got {t.dtype}")
+    for k, t in tensors.items():
+        if not t.is_contiguous():
+            raise ValueError(f"{name} needs a contiguous {k}")
+
+
+def _check_aligned(name: str, tensors) -> None:
+    """The kernels move 16 bytes at a time: every operand starts on a 16-byte boundary."""
+    if any(t is not None and t.data_ptr() % 16 for t in tensors):
+        raise ValueError(f"{name} needs operands that start on a 16-byte boundary")
+
+
+def ssm_conv_gate_in(
+    xs: torch.Tensor,
+    bmat: torch.Tensor,
+    cmat: torch.Tensor,
+    dt: torch.Tensor,
+    w_conv_x: torch.Tensor,
+    b_conv_x: torch.Tensor,
+    w_conv_b: torch.Tensor,
+    b_conv_b: torch.Tensor,
+    w_conv_c: torch.Tensor,
+    b_conv_c: torch.Tensor,
+    dt_bias: torch.Tensor,
+    a_log: torch.Tensor,
+    conv_x: torch.Tensor | None = None,
+    conv_b: torch.Tensor | None = None,
+    conv_c: torch.Tensor | None = None,
+) -> tuple[torch.Tensor, ...]:
+    """The Mamba2 mixer's chain before the scan: the causal depthwise conv and
+    silu of x, B and C, softplus of dt, xbar and log_da, and the new conv
+    states; see ``ref.ssm_conv_gate_in_ref`` for the arguments and outputs.
+
+    On the card ``csrc/ssm_mixer.cu``'s front kernel, one pass over its
+    inputs and outputs, rounding to bf16 at each step where the plain chain
+    does: bf16 streams, conv weights and biases, fp32 ``dt_bias``, ``a_log``
+    and conv states (the cache's), the head dim and N multiples of 8, 4 taps
+    (Mamba2's).  Not differentiable: the model takes it only where autograd
+    would not record the chain.
+    """
+    if xs.ndim != 3 or bmat.ndim != 3 or dt.ndim != 3 or w_conv_x.ndim != 2:
+        raise ValueError(f"expected xs, bmat, cmat, dt (B,S,.) and conv weights (K,.), got {tuple(xs.shape)}, "
+                         f"{tuple(bmat.shape)}, {tuple(dt.shape)}, {tuple(w_conv_x.shape)}")
+    b, s, ci = xs.shape
+    n, h, k = bmat.shape[-1], dt.shape[-1], w_conv_x.shape[0]
+    if (tuple(bmat.shape) != (b, s, n) or tuple(cmat.shape) != (b, s, n) or tuple(dt.shape) != (b, s, h)
+            or h == 0 or ci % h or tuple(dt_bias.shape) != (h,) or tuple(a_log.shape) != (h,)):
+        raise ValueError(f"bmat {tuple(bmat.shape)}, cmat {tuple(cmat.shape)}, dt {tuple(dt.shape)}, dt_bias "
+                         f"{tuple(dt_bias.shape)}, a_log {tuple(a_log.shape)} do not match xs {tuple(xs.shape)}")
+    streams = {"x": (w_conv_x, b_conv_x, conv_x, ci), "b": (w_conv_b, b_conv_b, conv_b, n),
+               "c": (w_conv_c, b_conv_c, conv_c, n)}
+    for name, (w, bias, state, width) in streams.items():
+        if tuple(w.shape) != (k, width) or tuple(bias.shape) != (width,):
+            raise ValueError(f"conv weight / bias of {name} {tuple(w.shape)} / {tuple(bias.shape)} are not "
+                             f"({k}, {width}) / ({width},)")
+        if state is not None and tuple(state.shape) != (b, k - 1, width):
+            raise ValueError(f"conv state of {name} {tuple(state.shape)} is not {(b, k - 1, width)}")
+    args = (xs, bmat, cmat, dt, w_conv_x, b_conv_x, w_conv_b, b_conv_b, w_conv_c, b_conv_c, dt_bias, a_log,
+            conv_x, conv_b, conv_c)
+    if xs.device.type == "cpu":
+        return ssm_conv_gate_in_ref(*args)
+    if xs.device.type != "cuda":
+        raise ValueError(f"ssm_conv_gate_in runs on cpu or cuda, not {xs.device}")
+    if torch.is_grad_enabled() and any(t is not None and t.requires_grad for t in args):
+        raise RuntimeError("ssm_conv_gate_in has no gradient: the model runs the plain chain where autograd records")
+    if ci % 8 or (ci // h) % 8 or n % 8 or k != 4:
+        raise ValueError(f"ssm_conv_gate_in takes head dims and state widths that are multiples of 8 and "
+                         f"4 taps, got xs {tuple(xs.shape)} over {h} heads, state {n}, {k} taps")
+    if b == 0 or s == 0:
+        raise ValueError(f"empty ssm_conv_gate_in: xs {tuple(xs.shape)}")
+    _check_cuda_operands(
+        "ssm_conv_gate_in",
+        {"xs": xs, "bmat": bmat, "cmat": cmat, "dt": dt, "w_conv_x": w_conv_x, "b_conv_x": b_conv_x,
+         "w_conv_b": w_conv_b, "b_conv_b": b_conv_b, "w_conv_c": w_conv_c, "b_conv_c": b_conv_c},
+        {"dt_bias": dt_bias, "a_log": a_log, "conv_x": conv_x, "conv_b": conv_b, "conv_c": conv_c})
+    if _dispatched(*(t for t in args if t is not None)):
+        return torch.ops.repro_torch.ssm_conv_gate_in(*args)
+    return _conv_gate_in_launch(*args)
+
+
+@torch.library.custom_op("repro_torch::ssm_conv_gate_in", mutates_args=())
+def _conv_gate_in_op(
+    xs: torch.Tensor, bmat: torch.Tensor, cmat: torch.Tensor, dt: torch.Tensor, w_conv_x: torch.Tensor,
+    b_conv_x: torch.Tensor, w_conv_b: torch.Tensor, b_conv_b: torch.Tensor, w_conv_c: torch.Tensor,
+    b_conv_c: torch.Tensor, dt_bias: torch.Tensor, a_log: torch.Tensor, conv_x: torch.Tensor | None,
+    conv_b: torch.Tensor | None, conv_c: torch.Tensor | None,
+) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor,
+           torch.Tensor]:
+    return _conv_gate_in_launch(xs, bmat, cmat, dt, w_conv_x, b_conv_x, w_conv_b, b_conv_b, w_conv_c, b_conv_c,
+                                dt_bias, a_log, conv_x, conv_b, conv_c)
+
+
+def _conv_gate_in_empty(xs, bmat, dt, k: int) -> tuple[torch.Tensor, ...]:
+    """``ssm_conv_gate_in``'s outputs, allocated: xs, bmat, cmat, xbar, log_da and three conv states."""
+    b, s, ci = xs.shape
+    h, n = dt.shape[-1], bmat.shape[-1]
+    return (torch.empty_like(xs), torch.empty_like(bmat), torch.empty_like(bmat),
+            xs.new_empty((b, s, h, ci // h)), xs.new_empty((b, s, h), dtype=torch.float32),
+            xs.new_empty((b, k - 1, ci)), bmat.new_empty((b, k - 1, n)), bmat.new_empty((b, k - 1, n)))
+
+
+def _conv_gate_in_launch(xs, bmat, cmat, dt, w_conv_x, b_conv_x, w_conv_b, b_conv_b, w_conv_c, b_conv_c,
+                         dt_bias, a_log, conv_x, conv_b, conv_c) -> tuple[torch.Tensor, ...]:
+    """The front kernel's launch on checked CUDA tensors (``ssm_conv_gate_in``)."""
+    b, s, ci = xs.shape
+    n, h, k = bmat.shape[-1], dt.shape[-1], w_conv_x.shape[0]
+    ins = (xs, bmat, cmat, dt, w_conv_x, b_conv_x, w_conv_b, b_conv_b, w_conv_c, b_conv_c, dt_bias, a_log,
+           conv_x, conv_b, conv_c)
+    outs = _conv_gate_in_empty(xs, bmat, dt, k)
+    _check_aligned("ssm_conv_gate_in", ins[:10] + ins[12:])  # dt_bias and a_log are read one by one
+    lib = _mixer_lib()
+    with torch.cuda.device(xs.device):
+        err = lib.repro_ssm_conv_gate_in(
+            *(None if t is None else t.data_ptr() for t in ins), *(t.data_ptr() for t in outs),
+            b, s, ci, n, h, k, torch.cuda.current_stream(xs.device).cuda_stream,
+        )
+    if err != 0:
+        raise RuntimeError(f"ssm_conv_gate_in kernel launch failed with cudaError_t {err}")
+    ssm_conv_gate_in.launches += 1
+    return outs
+
+
+@_conv_gate_in_op.register_fake
+def _conv_gate_in_fake(xs, bmat, cmat, dt, w_conv_x, b_conv_x, w_conv_b, b_conv_b, w_conv_c, b_conv_c, dt_bias,
+                       a_log, conv_x, conv_b, conv_c):
+    return _conv_gate_in_empty(xs, bmat, dt, w_conv_x.shape[0])
+
+
+ssm_conv_gate_in.launches = 0
+
+
+def ssm_gate_norm(
+    y: torch.Tensor,
+    xs: torch.Tensor,
+    z: torch.Tensor,
+    d_skip: torch.Tensor,
+    scale: torch.Tensor | None = None,
+    eps: float = 1e-5,
+) -> torch.Tensor:
+    """The Mamba2 mixer's chain after the scan: (y + xs * D) * silu(z), then
+    the RMS norm over the inner width by ``scale`` when it is given; see
+    ``ref.ssm_gate_norm_ref``.  y (B,S,H,P), xs and z (B,S,H*P), d_skip (H,).
+
+    On the card ``csrc/ssm_mixer.cu``'s back kernel, one block per token row:
+    bf16 y, xs and z, fp32 d_skip and scale, P a multiple of 8, the width at
+    most 8,192.  It rounds to bf16 where the plain chain does and takes the
+    norm's sum of squares in fp32 in its own order.  Not differentiable.
+    """
+    if y.ndim != 4:
+        raise ValueError(f"expected y (B,S,H,P), got {tuple(y.shape)}")
+    b, s, h, p = y.shape
+    if (tuple(xs.shape) != (b, s, h * p) or tuple(z.shape) != (b, s, h * p) or tuple(d_skip.shape) != (h,)
+            or (scale is not None and tuple(scale.shape) != (h * p,))):
+        raise ValueError(f"xs {tuple(xs.shape)}, z {tuple(z.shape)}, d_skip {tuple(d_skip.shape)}, scale "
+                         f"{None if scale is None else tuple(scale.shape)} do not match y {tuple(y.shape)}")
+    if y.device.type == "cpu":
+        return ssm_gate_norm_ref(y, xs, z, d_skip, scale, eps)
+    if y.device.type != "cuda":
+        raise ValueError(f"ssm_gate_norm runs on cpu or cuda, not {y.device}")
+    args = (y, xs, z, d_skip, scale)
+    if torch.is_grad_enabled() and any(t is not None and t.requires_grad for t in args):
+        raise RuntimeError("ssm_gate_norm has no gradient: the model runs the plain chain where autograd records")
+    if p % 8 or h * p > 8192:
+        raise ValueError(f"ssm_gate_norm takes head dims that are multiples of 8 and widths up to 8,192, "
+                         f"got y {tuple(y.shape)}")
+    if b == 0 or s == 0 or h == 0:
+        raise ValueError(f"empty ssm_gate_norm: y {tuple(y.shape)}")
+    _check_cuda_operands("ssm_gate_norm", {"y": y, "xs": xs, "z": z}, {"d_skip": d_skip, "scale": scale})
+    if _dispatched(*(t for t in args if t is not None)):
+        return torch.ops.repro_torch.ssm_gate_norm(y, xs, z, d_skip, scale, float(eps))
+    return _gate_norm_launch(y, xs, z, d_skip, scale, float(eps))
+
+
+@torch.library.custom_op("repro_torch::ssm_gate_norm", mutates_args=())
+def _gate_norm_op(y: torch.Tensor, xs: torch.Tensor, z: torch.Tensor, d_skip: torch.Tensor,
+                  scale: torch.Tensor | None, eps: float) -> torch.Tensor:
+    return _gate_norm_launch(y, xs, z, d_skip, scale, eps)
+
+
+def _gate_norm_launch(y, xs, z, d_skip, scale, eps: float) -> torch.Tensor:
+    """The back kernel's launch on checked CUDA tensors (``ssm_gate_norm``)."""
+    b, s, h, p = y.shape
+    out = torch.empty_like(xs)
+    _check_aligned("ssm_gate_norm", (y, xs, z, scale))
+    lib = _mixer_lib()
+    with torch.cuda.device(y.device):
+        err = lib.repro_ssm_gate_norm(
+            y.data_ptr(), xs.data_ptr(), z.data_ptr(), d_skip.data_ptr(),
+            None if scale is None else scale.data_ptr(), out.data_ptr(), b * s, h * p, h, eps,
+            torch.cuda.current_stream(y.device).cuda_stream,
+        )
+    if err != 0:
+        raise RuntimeError(f"ssm_gate_norm kernel launch failed with cudaError_t {err}")
+    ssm_gate_norm.launches += 1
+    return out
+
+
+@_gate_norm_op.register_fake
+def _gate_norm_fake(y, xs, z, d_skip, scale, eps):
+    return torch.empty_like(xs)
+
+
+ssm_gate_norm.launches = 0

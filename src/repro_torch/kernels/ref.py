@@ -1,7 +1,11 @@
 """Plain PyTorch versions of the port's kernels (ported from ``repro.kernels.ref``).
 
 The CPU tests run these, and ``chip_smoke.py`` holds each CUDA kernel against
-its plain version on the card.
+its plain version on the card.  ``ssm_conv_gate_in_ref`` and
+``ssm_gate_norm_ref`` are the Mamba2 mixer's elementwise chain as the model
+ran it before its kernels existed; training still runs them (autograd
+records them), and the kernels repeat their steps.  ``silu`` and ``rms_norm``
+are the model's own steps for both (``models.layers`` takes them from here).
 """
 
 from __future__ import annotations
@@ -128,3 +132,83 @@ def ssd_scan_bwd_ref(
         dx, da, db, dc, ds0 = torch.autograd.grad((y, state), (x, a, bm, cm, s0),
                                                   (dy.float(), dstate.float()))
     return dx.to(xbar.dtype), da, db.to(bmat.dtype), dc.to(cmat.dtype), ds0
+
+
+def silu(x: torch.Tensor) -> torch.Tensor:
+    """``jax.nn.silu``'s own steps, ``x * (1 / (1 + exp(-x)))``, each rounded to x's dtype.
+
+    ``F.silu`` rounds once; on bf16 the two differ by one step in many
+    elements, which the SSM's four silus a layer and the MoE's experts carry
+    into the logits.
+    """
+    return x * (1 / (1 + torch.exp(-x)))
+
+
+def rms_norm(x: torch.Tensor, scale: torch.Tensor, eps: float) -> torch.Tensor:
+    """RMS norm over the last dim in fp32, rounded back to x's dtype."""
+    xf = x.float()
+    var = xf.square().mean(dim=-1, keepdim=True)
+    y = xf * torch.rsqrt(var + eps) * scale.float()
+    return y.to(x.dtype)
+
+
+def depthwise_conv1d(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor, state: torch.Tensor | None = None):
+    """Causal depthwise conv along seq.  x: (B,S,C); w: (K,C); b: (C,).
+
+    With ``state`` (B, K-1, C) the last K-1 inputs of the previous step are
+    prepended (decode).  The K shifted products are summed in x's dtype in
+    the reference's order (``F.conv1d`` would accumulate in another order and
+    type).  Returns (y, new_state).
+    """
+    k = w.shape[0]
+    bsz, s, c = x.shape
+    if state is None:
+        pad = torch.zeros((bsz, k - 1, c), dtype=x.dtype, device=x.device)
+    else:
+        pad = state.to(x.dtype)
+    xp = torch.cat([pad, x], dim=1)  # (B, S+K-1, C)
+    y = xp[:, 0:s] * w[0]
+    for i in range(1, k):
+        y = y + xp[:, i : i + s] * w[i]
+    new_state = xp[:, s:] if k > 1 else torch.zeros_like(pad)
+    return y + b, new_state
+
+
+def ssm_conv_gate_in_ref(xs, bmat, cmat, dt, w_conv_x, b_conv_x, w_conv_b, b_conv_b, w_conv_c, b_conv_c,
+                         dt_bias, a_log, conv_x=None, conv_b=None, conv_c=None):
+    """The mixer's chain before the scan (``ops.ssm_conv_gate_in``).
+
+    xs (B,S,H*P), bmat/cmat (B,S,N) and dt (B,S,H) are the in-projection's
+    outputs; conv weights (K, width) and biases; dt_bias, a_log (H,); the
+    conv states (B, K-1, width) of a cache, or None.  Returns (xs, bmat, cmat
+    after the conv and silu, xbar (B,S,H,P) = xs * dt in xs's dtype, log_da
+    (B,S,H) fp32, and the new conv states of x, B and C).
+    """
+    bsz, s, _ = xs.shape
+    h = dt_bias.shape[0]
+    xs, new_conv_x = depthwise_conv1d(xs, w_conv_x, b_conv_x, conv_x)
+    bmat, new_conv_b = depthwise_conv1d(bmat, w_conv_b, b_conv_b, conv_b)
+    cmat, new_conv_c = depthwise_conv1d(cmat, w_conv_c, b_conv_c, conv_c)
+    xs = silu(xs)
+    bmat = silu(bmat)
+    cmat = silu(cmat)
+
+    dt = F.softplus(dt.float() + dt_bias)  # (B,S,H) fp32
+    a = -torch.exp(a_log)  # (H,) negative
+    log_da = dt * a
+    xhp = xs.reshape(bsz, s, h, -1)
+    xbar = xhp * dt[..., None].to(xhp.dtype)  # bf16, as the reference keeps it
+    return xs, bmat, cmat, xbar, log_da, new_conv_x, new_conv_b, new_conv_c
+
+
+def ssm_gate_norm_ref(y, xs, z, d_skip, scale=None, eps: float = 1e-5):
+    """The mixer's chain after the scan (``ops.ssm_gate_norm``).
+
+    y (B,S,H,P) is the scan's output, xs (B,S,H*P) its input before dt, z
+    (B,S,H*P) the gate; returns (y + xs * D) * silu(z), (B,S,H*P), then
+    RMS-normed by ``scale`` when it is given.
+    """
+    bsz, s, h, pd = y.shape
+    y = y + xs.reshape(bsz, s, h, pd) * d_skip.to(xs.dtype)[None, None, :, None]
+    y = y.reshape(bsz, s, h * pd) * silu(z)
+    return y if scale is None else rms_norm(y, scale, eps)

@@ -34,6 +34,8 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch import distributed as D
+from repro_torch.kernels import ref
+from repro_torch.kernels.ref import silu  # noqa: F401  (the model's silu, ``L.silu``)
 
 COMPUTE_DTYPE = torch.bfloat16
 
@@ -46,10 +48,7 @@ def cast(x: torch.Tensor) -> torch.Tensor:
 def rms_norm(x: torch.Tensor, scale: torch.Tensor, eps: float) -> torch.Tensor:
     if D.distributed_rules() is not None and isinstance(x, D.DTensor):
         return _local_rms_norm(x, scale, eps)
-    xf = x.float()
-    var = xf.square().mean(dim=-1, keepdim=True)
-    y = xf * torch.rsqrt(var + eps) * scale.float()
-    return y.to(x.dtype)
+    return ref.rms_norm(x, scale, eps)
 
 
 def _local_rms_norm(x, scale, eps: float):
@@ -173,16 +172,6 @@ def sinusoidal_positions(seq: int, d_model: int, device: torch.device | str) -> 
 
 
 # ------------------------------------------------------------------ MLP
-def silu(x: torch.Tensor) -> torch.Tensor:
-    """``jax.nn.silu``'s own steps, ``x * (1 / (1 + exp(-x)))``, each rounded to x's dtype.
-
-    ``F.silu`` rounds once; on bf16 the two differ by one step in many
-    elements, which the SSM's four silus a layer and the MoE's experts carry
-    into the logits.
-    """
-    return x * (1 / (1 + torch.exp(-x)))
-
-
 #: sqrt(2 / pi) in bf16, as ``jax.nn.gelu`` casts it to its input's dtype
 _SQRT_2_OVER_PI_BF16 = float(torch.tensor(math.sqrt(2 / math.pi), dtype=torch.bfloat16))
 

@@ -6,48 +6,33 @@ twin ``ssd_chunked``; on a CPU tensor the wrapper runs the plain version.
 Decode (one token with a cache): the O(1) conv-buffer and state update, in
 plain PyTorch as in the reference.
 
+The elementwise chain around the scan (the causal conv, silu, softplus and
+xbar before it; the skip, the gate and the norm after it) runs through
+``ops.ssm_conv_gate_in`` and ``ops.ssm_gate_norm`` wherever autograd would
+not record it, which on a CUDA tensor are two fused kernels; where autograd
+records (training, remat's recompute) it runs their plain versions
+(``kernels.ref``), op by op, as before the kernels existed.
+
 Under sharding rules on a multi-device mesh the block runs as the
 reference's annotations place it: z and x (the inner dim) shard over tp
 with the heads when ``ssm_heads % tp == 0``, B, C and dt replicate; the
 projections, convolutions, the scan (or the decode recurrence) and the
 gate run per rank in one ``distributed.local_call`` (``_mixer``), then the
 norm over the inner dim and the out-projection run on DTensors.  With no
-rules, or one device, ``_mixer`` runs on the whole tensors.
+rules, or one device, ``_mixer`` runs on the whole tensors and takes the
+norm too.
 """
 
 from __future__ import annotations
 
 import torch
-import torch.nn.functional as F
 
 from repro_torch import distributed as D
-from repro_torch.kernels import ops
+from repro_torch.kernels import ops, ref
 from repro_torch.models import layers as L
 from repro_torch.models.config import ModelConfig
 
 CACHE_KEYS = ("conv_x", "conv_b", "conv_c", "state")
-
-
-def depthwise_conv1d(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor, state: torch.Tensor | None = None):
-    """Causal depthwise conv along seq.  x: (B,S,C); w: (K,C); b: (C,).
-
-    With ``state`` (B, K-1, C) the last K-1 inputs of the previous step are
-    prepended (decode).  The K shifted products are summed in x's dtype in
-    the reference's order (``F.conv1d`` would accumulate in another order and
-    type).  Returns (y, new_state).
-    """
-    k = w.shape[0]
-    bsz, s, c = x.shape
-    if state is None:
-        pad = torch.zeros((bsz, k - 1, c), dtype=x.dtype, device=x.device)
-    else:
-        pad = state.to(x.dtype)
-    xp = torch.cat([pad, x], dim=1)  # (B, S+K-1, C)
-    y = xp[:, 0:s] * w[0]
-    for i in range(1, k):
-        y = y + xp[:, i : i + s] * w[i]
-    new_state = xp[:, s:] if k > 1 else torch.zeros_like(pad)
-    return y + b, new_state
 
 
 def ssd_chunked(
@@ -81,38 +66,33 @@ def _decode_step(state0, log_da, bmat, xbar, cmat, dtype):
 
 
 def _mixer(x, w_z, w_x, w_b, w_c, w_dt, w_conv_x, b_conv_x, w_conv_b, b_conv_b, w_conv_c, b_conv_c,
-           dt_bias, a_log, d_skip, conv_x, conv_b, conv_c, state0, cfg: ModelConfig):
-    """The block up to its norm, on one rank's heads (all of them on one device):
+           dt_bias, a_log, d_skip, conv_x, conv_b, conv_c, state0, cfg: ModelConfig, norm=None):
+    """The block up to its norm, on one rank's heads (all of them on one device), and
+    the norm too when its ``norm`` scale is given:
     -> (y * silu(z) (B, S, H_local*P), new conv_x, conv_b, conv_c, state)."""
-    bsz, s, _ = x.shape
-    h, pd = dt_bias.shape[0], cfg.ssm_headdim
     z = L.dense(x, w_z)
     xs = L.dense(x, w_x)
     bmat = L.dense(x, w_b)
     cmat = L.dense(x, w_c)
     dt = L.dense(x, w_dt)
 
-    xs, new_conv_x = depthwise_conv1d(xs, L.cast(w_conv_x), L.cast(b_conv_x), conv_x)
-    bmat, new_conv_b = depthwise_conv1d(bmat, L.cast(w_conv_b), L.cast(b_conv_b), conv_b)
-    cmat, new_conv_c = depthwise_conv1d(cmat, L.cast(w_conv_c), L.cast(b_conv_c), conv_c)
-    xs = L.silu(xs)
-    bmat = L.silu(bmat)
-    cmat = L.silu(cmat)
+    leaves = (x, w_z, w_x, w_b, w_c, w_dt, w_conv_x, b_conv_x, w_conv_b, b_conv_b, w_conv_c, b_conv_c,
+              dt_bias, a_log, d_skip, conv_x, conv_b, conv_c, state0, norm)
+    if torch.is_grad_enabled() and any(t is not None and t.requires_grad for t in leaves):
+        gate_in, gate_norm = ref.ssm_conv_gate_in_ref, ref.ssm_gate_norm_ref
+    else:
+        gate_in, gate_norm = ops.ssm_conv_gate_in, ops.ssm_gate_norm
+    xs, bmat, cmat, xbar, log_da, new_conv_x, new_conv_b, new_conv_c = gate_in(
+        xs, bmat, cmat, dt, L.cast(w_conv_x), L.cast(b_conv_x), L.cast(w_conv_b), L.cast(b_conv_b),
+        L.cast(w_conv_c), L.cast(b_conv_c), dt_bias, a_log, conv_x, conv_b, conv_c)
 
-    dt = F.softplus(dt.float() + dt_bias)  # (B,S,H) fp32
-    a = -torch.exp(a_log)  # (H,) negative
-    log_da = dt * a
-    xhp = xs.reshape(bsz, s, h, pd)
-    xbar = xhp * dt[..., None].to(xhp.dtype)  # bf16, as the reference keeps it
-
-    if s == 1 and state0 is not None:
+    if xs.shape[1] == 1 and state0 is not None:
         y, new_state = _decode_step(state0, log_da, bmat, xbar, cmat, x.dtype)
     else:
         y, new_state = ssd_chunked(xbar, log_da, bmat, cmat, cfg.ssm_chunk, state0)
 
-    y = y + xhp * d_skip.to(x.dtype)[None, None, :, None]
-    y = y.reshape(bsz, s, h * pd)
-    return y * L.silu(z), new_conv_x, new_conv_b, new_conv_c, new_state
+    y = gate_norm(y, xs, z, d_skip, norm, cfg.norm_eps)
+    return y, new_conv_x, new_conv_b, new_conv_c, new_state
 
 
 _WEIGHTS = ("w_z", "w_x", "w_b", "w_c", "w_dt", "w_conv_x", "b_conv_x", "w_conv_b", "b_conv_b",
@@ -142,18 +122,17 @@ def mamba_block(x: torch.Tensor, p: dict, cfg: ModelConfig, cache: dict | None =
     without a cache.  Under distributed rules ``_mixer`` runs per rank on its
     heads, then the norm over the inner dim and the out-projection (its
     partial sums over tp) run on DTensors, as the reference's annotations
-    place them.
+    place them; without rules ``_mixer`` takes the norm too.
     """
     cs = cache if cache is not None else {}
     args = [x] + [p[k] for k in _WEIGHTS] + [cs.get(k) for k in CACHE_KEYS]
     rules = D.distributed_rules()
     if rules is None:
-        y, *new = _mixer(*args, cfg=cfg)
+        y, *new = _mixer(*args, cfg=cfg, norm=p["norm"])
     else:
         ins, outs = _mixer_specs(rules, cfg, x)
         y, *new = D.local_call(lambda *a: _mixer(*a, cfg=cfg), list(zip(args, ins)), outs)
-        y = D.shard(y, "batch", None, "tp")
-    y = L.rms_norm(y, p["norm"], cfg.norm_eps)
+        y = L.rms_norm(D.shard(y, "batch", None, "tp"), p["norm"], cfg.norm_eps)
     out = D.shard(L.dense(y, p["w_out"]), "batch", None, None)
     new_cache = None
     if cache is not None:

@@ -26,7 +26,9 @@ records the step while the device idles).
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
+import gc
 from typing import Any, Callable
 
 import torch
@@ -180,6 +182,18 @@ class GraphStep:
         return self.tokens
 
 
+@contextlib.contextmanager
+def _collector_held_off():
+    """Python's cyclic collector disabled inside, as it was outside afterwards."""
+    enabled = gc.isenabled()
+    gc.disable()
+    try:
+        yield
+    finally:
+        if enabled:
+            gc.enable()
+
+
 def capture_serve_step(cfg: ModelConfig, params, cache: dict, batch: dict) -> GraphStep:
     """Run one decode step eagerly, then capture the next as a CUDA graph.
 
@@ -190,6 +204,11 @@ def capture_serve_step(cfg: ModelConfig, params, cache: dict, batch: dict) -> Gr
     cache has advanced by one and ``tokens`` holds its greedy output.  Each
     ``replay`` of the returned step then decodes one more token.  A failure
     to capture raises; nothing falls back to the eager step.
+
+    Python's cyclic collector is held off while the graph records: a CUDA
+    graph that it frees then (an earlier step's, left in a reference cycle)
+    resets itself, which a capture in progress does not permit, and the
+    capture fails.
     """
     tokens = batch["tokens"].clone()
     if not tokens.is_cuda or tokens.shape[1] != 1:
@@ -202,7 +221,7 @@ def capture_serve_step(cfg: ModelConfig, params, cache: dict, batch: dict) -> Gr
             serve_step_in_place(cfg, params, cache, tokens)
         torch.cuda.current_stream(tokens.device).wait_stream(side)
     graph = torch.cuda.CUDAGraph()
-    with phases.phase("serve.capture.record"):
+    with phases.phase("serve.capture.record"), _collector_held_off():
         with torch.cuda.graph(graph):
             logits = serve_step_in_place(cfg, params, cache, tokens)
     return GraphStep(graph=graph, tokens=tokens, logits=logits)

@@ -108,3 +108,24 @@ def test_capture_takes_card_tokens_only():
     cfg, params, cache, tok = _prefilled("qwen2-1.5b")
     with pytest.raises(ValueError, match="CUDA tokens"):
         capture_serve_step(cfg, params, cache, {"tokens": tok})
+
+
+@pytest.mark.parametrize("enabled", [True, False])
+def test_the_collector_is_held_off_while_a_graph_records(enabled):
+    """A CUDA graph that the cyclic collector frees during another capture invalidates that
+    capture, so ``capture_serve_step`` records with the collector off and restores it after."""
+    import gc
+
+    from repro_torch.train import steps
+
+    was = gc.isenabled()
+    try:
+        (gc.enable if enabled else gc.disable)()
+        with steps._collector_held_off():
+            assert not gc.isenabled()
+        assert gc.isenabled() == enabled
+        with pytest.raises(RuntimeError), steps._collector_held_off():
+            raise RuntimeError("a failed capture")
+        assert gc.isenabled() == enabled
+    finally:
+        (gc.enable if was else gc.disable)()

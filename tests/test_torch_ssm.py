@@ -25,9 +25,21 @@ the two packages.  The twin rounds its intra-chunk weights to bf16 before the
 second product (``ssm.py:84``); the card's bf16 kernel feeds them as a bf16
 pair hi + lo, and the Pallas kernel and the port's plain version keep them
 in fp32, so on bf16 the block agrees to the bar, not bit for bit.
+
+The mixer's elementwise chain around the scan runs, where autograd does not
+record it, through ``ops.ssm_conv_gate_in`` and ``ops.ssm_gate_norm``: on a
+CPU tensor their plain versions, held here bit for bit against the chain as
+the block ran it before its kernels (``_old_mixer``), with and without
+autograd; on the card two kernels (``csrc/ssm_mixer.cu``, held against the
+plain versions by ``test_torch_ssm_card.py``), whose steps and roundings
+``_front_emulated`` and ``_back_emulated`` repeat here.
 """
 
 import dataclasses
+import os
+import subprocess
+import sys
+from pathlib import Path
 
 import numpy as np
 import pytest
@@ -43,8 +55,11 @@ from repro.models import ssm as JS  # noqa: E402
 from repro.models.config import ModelConfig as JConfig  # noqa: E402
 from repro_torch.kernels import ops  # noqa: E402
 from repro_torch.kernels import ref  # noqa: E402
+from repro_torch.models import layers as L  # noqa: E402
 from repro_torch.models import ssm as TS  # noqa: E402
 from repro_torch.models.config import ModelConfig as TConfig  # noqa: E402
+
+from torch_ssm_mixer_cases import FRONT_ARGS, FRONT_OUTS, mixer_inputs, steps_apart  # noqa: E402
 
 JDT = {"float32": jnp.float32, "bfloat16": jnp.bfloat16}
 TDT = {"float32": torch.float32, "bfloat16": torch.bfloat16}
@@ -353,8 +368,8 @@ def test_depthwise_conv1d_matches_the_reference(with_state):
     bf = (jnp.bfloat16, torch.bfloat16)
     jy, jst = JS.depthwise_conv1d(*(jnp.asarray(a).astype(bf[0]) for a in (x, w, b)),
                                   None if st is None else jnp.asarray(st))
-    ty, tst = TS.depthwise_conv1d(*(torch.from_numpy(a).to(bf[1]) for a in (x, w, b)),
-                                  None if st is None else torch.from_numpy(st))
+    ty, tst = ref.depthwise_conv1d(*(torch.from_numpy(a).to(bf[1]) for a in (x, w, b)),
+                                   None if st is None else torch.from_numpy(st))
     assert ty.dtype == torch.bfloat16 and tst.shape == (2, 3, 24)
     # the same bf16 products summed in the same order: equal, not just close
     np.testing.assert_array_equal(_np(ty), _np(jy))
@@ -402,3 +417,242 @@ def test_mamba_block_prefill_then_decode_matches_the_reference():
         for k in TS.CACHE_KEYS:
             assert tcache[k].dtype == torch.float32 and tcache[k].shape == jcache[k].shape
             np.testing.assert_allclose(_np(tcache[k]), _np(jcache[k]), **BF16, err_msg=k)
+
+
+# ------------------------------------------------------------ the mixer's chain around the scan
+
+def _old_conv(x, w, b, state=None):
+    """The block's causal depthwise conv before the mixer's kernels existed."""
+    k, (bsz, s, c) = w.shape[0], x.shape
+    pad = torch.zeros((bsz, k - 1, c), dtype=x.dtype) if state is None else state.to(x.dtype)
+    xp = torch.cat([pad, x], dim=1)
+    y = xp[:, 0:s] * w[0]
+    for i in range(1, k):
+        y = y + xp[:, i : i + s] * w[i]
+    return y + b, xp[:, s:]
+
+
+def _old_mixer(x, w_z, w_x, w_b, w_c, w_dt, w_conv_x, b_conv_x, w_conv_b, b_conv_b, w_conv_c, b_conv_c,
+               dt_bias, a_log, d_skip, conv_x, conv_b, conv_c, state0, cfg):
+    """``models/ssm.py::_mixer`` as it was before the mixer's kernels, op for op."""
+    bsz, s, _ = x.shape
+    h, pd = dt_bias.shape[0], cfg.ssm_headdim
+    z, xs, bmat, cmat, dt = (L.dense(x, w) for w in (w_z, w_x, w_b, w_c, w_dt))
+    xs, new_conv_x = _old_conv(xs, L.cast(w_conv_x), L.cast(b_conv_x), conv_x)
+    bmat, new_conv_b = _old_conv(bmat, L.cast(w_conv_b), L.cast(b_conv_b), conv_b)
+    cmat, new_conv_c = _old_conv(cmat, L.cast(w_conv_c), L.cast(b_conv_c), conv_c)
+    xs, bmat, cmat = L.silu(xs), L.silu(bmat), L.silu(cmat)
+    dt = torch.nn.functional.softplus(dt.float() + dt_bias)
+    log_da = dt * -torch.exp(a_log)
+    xhp = xs.reshape(bsz, s, h, pd)
+    xbar = xhp * dt[..., None].to(xhp.dtype)
+    if s == 1 and state0 is not None:
+        y, new_state = TS._decode_step(state0, log_da, bmat, xbar, cmat, x.dtype)
+    else:
+        y, new_state = TS.ssd_chunked(xbar, log_da, bmat, cmat, cfg.ssm_chunk, state0)
+    y = y + xhp * d_skip.to(x.dtype)[None, None, :, None]
+    return y.reshape(bsz, s, h * pd) * L.silu(z), new_conv_x, new_conv_b, new_conv_c, new_state
+
+
+def _mixer_args(cfg, s: int, cache: bool, grad: bool, seed: int = 6):
+    """``_mixer``'s arguments for a batch of 2: the block's fp32 masters (training) or bf16 weights
+    (serving), fp32 caches (or None), and the norm's scale."""
+    d, di, n, h = cfg.d_model, cfg.d_inner, cfg.ssm_state, cfg.ssm_heads
+    g = torch.Generator().manual_seed(seed)
+
+    def w(*shape, scale=None, dtype=torch.bfloat16):
+        t = torch.randn(shape, generator=g) * (scale or shape[0] ** -0.5)
+        return t.float().requires_grad_() if grad else t.to(dtype)
+
+    f32 = torch.float32
+    weights = [w(d, di), w(d, di), w(d, n), w(d, n), w(d, h), w(4, di, scale=0.5), w(di, scale=0.1),
+               w(4, n, scale=0.5), w(n, scale=0.1), w(4, n, scale=0.5), w(n, scale=0.1),
+               w(h, scale=0.1, dtype=f32), w(h, scale=0.3, dtype=f32), w(h, scale=0.1, dtype=f32)]
+    caches = [None] * 4
+    if cache:
+        caches = [torch.randn(shape, generator=g).bfloat16().float()
+                  for shape in ((2, 3, di), (2, 3, n), (2, 3, n), (2, h, cfg.ssm_headdim, n))]
+    x = torch.randn((2, s, d), generator=g).bfloat16()
+    return [x, *weights, *caches], w(di, scale=0.1, dtype=f32)
+
+
+@pytest.mark.parametrize("s,cache", [(100, True), (70, False), (1, True)])  # prefill, no cache, decode
+def test_mixer_wrappers_on_cpu_equal_the_old_chain(s, cache):
+    """Serving (no autograd): the block's new route through the wrappers, on a CPU tensor their plain
+    versions, gives the old chain's output, conv buffers and state bit for bit."""
+    cfg = _block_cfg(TConfig)
+    args, scale = _mixer_args(cfg, s, cache, grad=False)
+    launches = ops.ssm_conv_gate_in.launches, ops.ssm_gate_norm.launches
+    got = TS._mixer(*args, cfg=cfg, norm=scale)
+    want = _old_mixer(*args, cfg=cfg)
+    want = (L.rms_norm(want[0], scale, cfg.norm_eps), *want[1:])
+    for name, g, w in zip(("y", "conv_x", "conv_b", "conv_c", "state"), got, want):
+        assert g.dtype == w.dtype and torch.equal(g, w), name
+    assert (ops.ssm_conv_gate_in.launches, ops.ssm_gate_norm.launches) == launches == (0, 0)
+
+
+@pytest.mark.parametrize("s", [100, 70])
+def test_mixer_under_autograd_computes_what_it_did_before(s):
+    """Training (autograd records): the output and every gradient of the old chain, bit for bit."""
+    cfg = _block_cfg(TConfig)
+    args, scale = _mixer_args(cfg, s, False, grad=True)
+    leaves = [t for t in (*args, scale) if t is not None and t.requires_grad]
+    cot = torch.randn((2, s, cfg.d_inner), generator=torch.Generator().manual_seed(7))
+    outs = []
+    for run in (lambda: TS._mixer(*args, cfg=cfg, norm=scale)[0],
+                lambda: L.rms_norm(_old_mixer(*args, cfg=cfg)[0], scale, cfg.norm_eps)):
+        y = run()
+        outs.append((y, torch.autograd.grad((y.float() * cot).sum(), leaves)))
+    (y_new, g_new), (y_old, g_old) = outs
+    assert torch.equal(y_new, y_old)
+    for i, (a, b) in enumerate(zip(g_new, g_old)):
+        assert torch.equal(a, b), f"gradient of leaf {i}"
+
+
+def test_mixer_takes_the_wrappers_only_where_autograd_does_not_record(monkeypatch):
+    calls = {"ssm_conv_gate_in": 0, "ssm_gate_norm": 0}
+    for name in calls:
+        def counted(*a, _real=getattr(ops, name), _name=name, **k):
+            calls[_name] += 1
+            return _real(*a, **k)
+        monkeypatch.setattr(ops, name, counted)
+    cfg = _block_cfg(TConfig)
+    args, scale = _mixer_args(cfg, 70, False, grad=True)
+    y = TS._mixer(*args, cfg=cfg, norm=scale)[0]
+    y.float().sum().backward()
+    assert calls == {"ssm_conv_gate_in": 0, "ssm_gate_norm": 0}  # training's graph: the plain chain
+    with torch.no_grad():
+        TS._mixer(*args, cfg=cfg, norm=scale)
+    assert calls == {"ssm_conv_gate_in": 1, "ssm_gate_norm": 1}
+    args, scale = _mixer_args(cfg, 70, True, grad=False)  # nothing requires grad, grad mode on
+    TS._mixer(*args, cfg=cfg, norm=scale)
+    assert calls == {"ssm_conv_gate_in": 2, "ssm_gate_norm": 2}
+
+
+def _rb(t):
+    """fp32 rounded to bf16 (nearest even) and back."""
+    return t.bfloat16().float()
+
+
+def _silu_emulated(x):
+    return _rb(x * _rb(1 / _rb(1 + _rb(torch.exp(-x)))))
+
+
+def _front_emulated(inp: dict) -> list:
+    """The front kernel's steps in fp32 with its bf16 roundings (``csrc/ssm_mixer.cu``)."""
+    def conv_silu(x, w, b, state):
+        s = x.shape[1]
+        pad = torch.zeros((x.shape[0], w.shape[0] - 1, x.shape[2])) if state is None else _rb(state)
+        xp = torch.cat([pad, x.float()], dim=1)
+        w = w.float()
+        y = _rb(xp[:, 0:s] * w[0])
+        for i in range(1, w.shape[0]):
+            y = _rb(y + _rb(xp[:, i : i + s] * w[i]))
+        return _silu_emulated(_rb(y + b.float())), xp[:, s:]
+
+    xs, nx = conv_silu(inp["xs"], inp["w_conv_x"], inp["b_conv_x"], inp["conv_x"])
+    bm, nb = conv_silu(inp["bmat"], inp["w_conv_b"], inp["b_conv_b"], inp["conv_b"])
+    cm, nc = conv_silu(inp["cmat"], inp["w_conv_c"], inp["b_conv_c"], inp["conv_c"])
+    # softplus is one fp32 step, v > 20 ? v : log1p(exp(v)) on the card as in PyTorch's CUDA kernel; on
+    # the CPU F.softplus computes that with another exp and log1p, which differ in the last bits
+    dsp = torch.nn.functional.softplus(inp["dt"].float() + inp["dt_bias"])
+    b, s, h = dsp.shape
+    xbar = _rb(xs.reshape(b, s, h, -1) * _rb(dsp)[..., None])
+    log_da = dsp * -torch.exp(inp["a_log"])
+    return [xs, bm, cm, xbar, log_da, nx, nb, nc]
+
+
+def _back_emulated(y, xs, z, d_skip, scale, eps):
+    """The back kernel's steps in fp32 with its bf16 roundings, and its row sum in its order:
+    thread t of 128 holds channel groups t, t + 128, ... of 8 and sums their squares in channel
+    order, a butterfly sums each warp's 32 lanes, then the 4 warps add in order."""
+    b, s, h, p = y.shape
+    c = h * p
+    dd = _rb(d_skip).repeat_interleave(p)
+    g = _rb(_rb(y.reshape(b, s, c).float() + _rb(xs.float() * dd)) * _silu_emulated(z.float()))
+    if scale is None:
+        return g.bfloat16()
+    groups = -(-c // 1024)
+    sq = torch.nn.functional.pad(g * g, (0, groups * 1024 - c)).reshape(b, s, groups, 128, 8)
+    acc = torch.zeros((b, s, 128))
+    for j in range(groups):
+        for e in range(8):
+            acc = acc + sq[..., j, :, e]
+    lanes = acc.reshape(b, s, 4, 32)
+    while lanes.shape[-1] > 1:
+        half = lanes.shape[-1] // 2
+        lanes = lanes[..., :half] + lanes[..., half:]
+    ss = lanes[..., 0, 0] + lanes[..., 1, 0] + lanes[..., 2, 0] + lanes[..., 3, 0]
+    inv = torch.rsqrt(ss * torch.tensor(1.0 / c, dtype=torch.float32) + eps)[..., None]
+    return ((g * inv) * scale).bfloat16()
+
+
+# (batch, seq, heads, head dim, state, conv state given): a prefill over two position tiles of the
+# front kernel, zamba2's width over five channel groups a thread of the back kernel, a decode step
+MIXER_SHAPES = [(2, 150, 8, 64, 32, True), (1, 40, 80, 64, 64, False), (3, 1, 8, 64, 32, True)]
+
+
+@pytest.mark.parametrize("shape", MIXER_SHAPES)
+def test_front_kernel_steps_equal_the_plain_chain(shape):
+    inp = mixer_inputs("cpu", *shape)
+    want = ref.ssm_conv_gate_in_ref(*(inp[k] for k in FRONT_ARGS))
+    for name, g, w in zip(FRONT_OUTS, _front_emulated(inp), want):
+        same, steps = steps_apart(g.to(w.dtype), w)
+        assert same >= 0.999 and steps <= 1, f"{name}: {same:.6f} equal, {steps} steps apart at most"
+        if name.startswith("conv_"):
+            assert same == 1.0, name
+
+
+@pytest.mark.parametrize("shape", MIXER_SHAPES)
+@pytest.mark.parametrize("norm", [True, False])
+def test_back_kernel_steps_within_one_bf16_step(shape, norm):
+    inp = mixer_inputs("cpu", *shape, seed=1)
+    args = (inp["y"], inp["xs"], inp["z"], inp["d_skip"], inp["norm"] if norm else None, 1e-5)
+    same, steps = steps_apart(_back_emulated(*args), ref.ssm_gate_norm_ref(*args))
+    assert steps <= 1, f"{same:.6f} equal, {steps} steps apart at most"
+    if not norm:
+        assert same == 1.0
+
+
+def test_mixer_wrappers_fake_implementations():
+    """The dry run traces the wrappers on fake CUDA tensors: their ops' fake implementations."""
+    from torch._subclasses.fake_tensor import FakeTensorMode
+
+    b, s, h, p, n = 2, 5, 4, 8, 16
+    with FakeTensorMode():
+        inp = {k: None if v is None else torch.empty(v.shape, dtype=v.dtype, device="cuda")
+               for k, v in mixer_inputs("cpu", b, s, h, p, n, True).items()}
+        front = ops.ssm_conv_gate_in(*(inp[k] for k in FRONT_ARGS))
+        back = [ops.ssm_gate_norm(inp["y"], inp["xs"], inp["z"], inp["d_skip"], scale) for scale in (inp["norm"], None)]
+    bf, f32 = torch.bfloat16, torch.float32
+    want = [((b, s, h * p), bf), ((b, s, n), bf), ((b, s, n), bf), ((b, s, h, p), bf), ((b, s, h), f32),
+            ((b, 3, h * p), bf), ((b, 3, n), bf), ((b, 3, n), bf)] + [((b, s, h * p), bf)] * 2
+    assert [(tuple(t.shape), t.dtype, t.device.type) for t in (*front, *back)] == [(*w, "cuda") for w in want]
+    assert ops.ssm_conv_gate_in.launches == ops.ssm_gate_norm.launches == 0
+
+
+def test_plain_versions_and_wrappers_import_no_model_code():
+    """The kernels stand below the models: the chain's plain versions take ``silu`` and ``rms_norm``
+    from ``kernels/ref.py``, and ``models.layers`` takes them from there, not the other way round."""
+    code = ("import sys, repro_torch.kernels.ops; "
+            "print(sorted(m for m in sys.modules if m.startswith('repro_torch.models')))")
+    src = Path(__file__).resolve().parents[1] / "src"
+    out = subprocess.run([sys.executable, "-c", code], capture_output=True, text=True, timeout=120, check=True,
+                         env={**os.environ, "PYTHONPATH": str(src)}).stdout
+    assert out.strip() == "[]"
+    assert L.silu is ref.silu
+
+
+def test_mixer_wrappers_reject_bad_shapes():
+    inp = mixer_inputs("cpu", 1, 6, 4, 8, 16, True)
+    args = [inp[k] for k in FRONT_ARGS]
+    with pytest.raises(ValueError, match="do not match xs"):
+        ops.ssm_conv_gate_in(args[0], args[1][:, :5], *args[2:])
+    with pytest.raises(ValueError, match="conv state of x"):
+        ops.ssm_conv_gate_in(*args[:12], args[12][:, :2], *args[13:])
+    with pytest.raises(ValueError, match="conv weight / bias of b"):
+        ops.ssm_conv_gate_in(*args[:6], args[6][:3], *args[7:])
+    with pytest.raises(ValueError, match="do not match y"):
+        ops.ssm_gate_norm(inp["y"], inp["xs"][:, :, :16], inp["z"], inp["d_skip"])
+    with pytest.raises(ValueError, match="expected y"):
+        ops.ssm_gate_norm(inp["xs"], inp["xs"], inp["z"], inp["d_skip"])
