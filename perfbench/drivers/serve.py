@@ -36,6 +36,14 @@ from perfbench import harness, trace, weights
 from perfbench.reference import model as ref
 
 PROFILE_TRIES = 4
+#: the traffic that a CPU run of the benchmark's tests shrinks to
+SMALL = {"batch": 2, "prompt": 40, "gen": 5, "check_requests": 3}
+#: the model's sizes that such a run keeps at the configuration's (beside ``harness.EXECUTION_KEYS``):
+#: the tied head's logits, which the comparison reads, scale with ``d_model``
+SMALL_KEEPS = ("d_model",)
+#: the readings that ``calibrate.py`` takes beside the program's on its control seeds (``readings``),
+#: each with the multiple of the program's largest reading from which it counts as an upper one
+FAULTS = {"control": 3, "fault_token": 10}
 
 
 def prompts_for(seed: int, batch_index: int, batch: int, prompt: int, vocab: int) -> np.ndarray:
@@ -221,6 +229,38 @@ def run(cell) -> dict:
             "attempted": batch * len(served), "failed": 0,
             "device": harness.device_info(dev, max(peak_setup, peak_window)),
             "checks": {"logit_gap": (gap, cell.limits["logit_gap"])}}
+
+
+def readings(cell, control: bool) -> dict:
+    """``calibrate.py``'s readings: the program's ``logit_gap`` over as many requests as a run
+    compares, served by the window's own call and, with ``control``, those of the fp8 control (the
+    gap of the token that it puts first) and of a served token altered where it is produced (the
+    next id in the vocabulary)."""
+    import torch
+
+    from perfbench.reference.lowp import fp8_matmul
+    from repro_torch.launch.serve import generate
+
+    cfg = harness.port_config(cell.config)
+    m, tr = cell.model, cell.traffic
+    params = weights.make(cell.config["family"], m, cell.seed, cell.device, torch.bfloat16)
+    served = []
+    for i in range(-(-tr["check_requests"] // tr["batch"])):
+        prompts = prompts_for(cell.seed, i, tr["batch"], tr["prompt"], m["vocab"])
+        served.append((prompts, generate(cfg, params, prompts, tr["gen"], device=cell.device).cpu().numpy()))
+    del params
+    gc.collect()
+    if cell.device == "cuda":
+        torch.cuda.empty_cache()
+    requests = sample_requests(cell, served)
+    want = reference_logits(cell, requests)
+    out = {"logit_gap": max(gaps(want, [t for _, t in requests]))}
+    if control:
+        low = reference_logits(cell, requests, fp8_matmul)
+        out["control.logit_gap"] = max(gaps(want, [lg.argmax(dim=-1).cpu().numpy() for lg in low]))
+        altered = [np.where(np.arange(len(t)) == len(t) // 2, (t + 1) % m["vocab"], t) for _, t in requests]
+        out["fault_token.logit_gap"] = max(gaps(want, altered))
+    return out
 
 
 def sample_requests(cell, served: list) -> list:

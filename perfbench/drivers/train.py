@@ -33,6 +33,13 @@ from perfbench.reference import adamw as ref_adamw
 from perfbench.reference import model as ref
 
 PROFILE_TRIES = 4
+#: the traffic that a CPU run of the benchmark's tests shrinks to (16 rows, so that half a batch left out shows)
+SMALL = {"batch": 16, "seq": 64}
+#: the model's sizes that such a run keeps at the configuration's (beside ``harness.EXECUTION_KEYS``)
+SMALL_KEEPS = ()
+#: the readings that ``calibrate.py`` takes beside the program's on its control seeds (``readings``),
+#: each with the multiple of the program's largest reading from which it counts as an upper one
+FAULTS = {"control": 3, "fault_half_batch": 10, "fault_unchanged": 3}
 #: a leaf whose first gradient in the reference is below this share of the
 #: median leaf's moves under Adam by rounding alone, and its change is not compared
 STILL_LEAF = 1e-3
@@ -137,6 +144,43 @@ def run(cell) -> dict:
     checks = {k: (found[k], lim) for k, lim in cell.limits.items()}
     return {"e2e": e2e, "ctx": ctx, "profile": kept, "attempted": n, "failed": 0,
             "device": harness.device_info(dev, max(peak_setup, peak_window)), "checks": checks}
+
+
+def readings(cell, control: bool) -> dict:
+    """``calibrate.py``'s readings: the program's first steps against the reference and, with
+    ``control``, those of the fp8 control and the faults in ``FAULTS`` (half of the batch left out,
+    planted in the reference put in the program's place; a state left unchanged, which reads 1 on
+    the gradient and the change by their definition)."""
+    import torch
+
+    from perfbench.reference.lowp import fp8_matmul
+    from repro_torch.optim.adamw import AdamWConfig
+    from repro_torch.train.steps import make_train_step
+
+    cfg = harness.port_config(cell.config)
+    step_fn = make_train_step(cfg, AdamWConfig(**cell.config["train"]))
+    params, opt, program = first_steps(cell, step_fn)
+    del params, opt, step_fn
+    gc.collect()
+    if cell.device == "cuda":
+        torch.cuda.empty_cache()
+    reference = follow(cell)
+    out = dict(training_gaps(program, reference))
+    if control:
+        for label, kwargs in (("control", {"matmul": fp8_matmul}),
+                              ("fault_half_batch", {"rows": slice(0, cell.traffic["batch"] // 2)})):
+            for k, v in training_gaps(follow(cell, **kwargs), reference).items():
+                out[f"{label}.{k}"] = v
+        out.update(unchanged_readings(program, reference))
+    return out
+
+
+def unchanged_readings(program: dict, reference: dict) -> dict:
+    """The readings of a step that returns its state unchanged: no gradient and no change on any leaf."""
+    unchanged = {"loss": program["loss"], "grad": dict.fromkeys(program["grad"], 0.0),
+                 "change": dict.fromkeys(program["change"], 0.0)}
+    found = training_gaps(unchanged, reference)
+    return {f"fault_unchanged.{k}": v for k, v in found.items() if k != "loss_gap"}
 
 
 def first_steps(cell, step_fn) -> tuple:

@@ -9,14 +9,26 @@ metric is a file of its own, found by the name that ``BENCHMARK.json`` gives:
 * ``perfbench/traffic/<traffic>.json``: the mix's parameters, and ``kind``,
   which names the driver;
 * ``perfbench/drivers/<kind>.py``: ``run(cell) -> dict`` for every mix of
-  that kind (set-up, the measured window, the traced part, the comparison);
+  that kind (set-up, the measured window, the traced part, the comparison),
+  run in this process on one card; or ``run_rank(cell, world) -> dict``,
+  run in each of the cell's ``chips`` processes, one a card, by
+  ``perfbench/ranks.py`` (the mesh and sharding rules of the mix's
+  ``mesh``, ``axes`` and ``fsdp`` in ``world``); ``readings(cell, control)``
+  or, by ranks, ``readings_rank(cell, world, control)`` with ``FAULTS``, the
+  readings and multiples that ``calibrate.py`` sets a limit from; and
+  ``SMALL`` and ``SMALL_KEEPS``, the mix's keys that a CPU run of the tests
+  shrinks, with their values, and the model's sizes that it keeps;
+* ``perfbench/reference/<family>.py``: the plain reference's layers of the
+  configuration's ``family`` and their leaves (``layer_specs``, ``layers``),
+  which ``weights`` and ``reference/model.py`` find by that name;
 * ``perfbench/limits/<workload>.json``: the limit of each number that the
   cell's comparison reads;
 * ``perfbench/metrics/<metric>.py``: ``read(ctx) -> float | None`` for a
   per-layer metric, from what a traced run recorded.
 
-So a later change adds a configuration, a mix, a cell or a metric by adding
-files and entries, and edits none of these.
+So a later change adds a configuration (of a new family too), a mix (of a
+new kind too), a cell (on four chips too) or a metric by adding files and
+entries, and edits none of these.
 """
 
 from __future__ import annotations
@@ -78,10 +90,20 @@ class Cell:
     t_start: float
     device: str = "cuda"
     here: Path = HERE
+    chips: int = 1
 
     @property
     def model(self) -> dict:
         return self.config["model"]
+
+
+class RanksFailed(RuntimeError):
+    """A rank of ``perfbench/ranks.py`` raised, died or hung; ``pids`` are the rank processes, all
+    stopped and waited for."""
+
+    def __init__(self, message: str, pids: list[int]):
+        super().__init__(message)
+        self.pids = pids
 
 
 def applies(metric: dict, workload: str) -> bool:
@@ -100,7 +122,8 @@ def load_cell(workload: str, seed: int, seconds: float, trace: bool, t_start: fl
     cell = Cell(name=workload, config_name=conf["name"], config=load_json(root / conf["file"]),
                 traffic=load_json(here / "traffic" / f"{entry['traffic']}.json"),
                 limits=load_json(here / "limits" / f"{workload}.json"),
-                seed=seed, seconds=seconds, trace=trace, t_start=t_start, device=device, here=here)
+                seed=seed, seconds=seconds, trace=trace, t_start=t_start, device=device, here=here,
+                chips=entry["chips"])
     return cell, entry
 
 
@@ -142,13 +165,15 @@ def nearest_rank(values, q: float) -> float:
     return ordered[max(0, math.ceil(q * len(ordered)) - 1)]
 
 
-def device_info(device: str, peak: int) -> dict:
-    """The result line's ``device``: the card's name, one card, and the peak of allocated memory."""
+def device_info(device: str, peak: int, count: int = 1) -> dict:
+    """The result line's ``device``: the card's name, the ``count`` cards the run uses (on the CPU,
+    the processes it uses: its ranks, or 1), and the peak of allocated memory on the fullest of them
+    (``peak``)."""
     import torch
 
     if device != "cuda":
-        return {"platform": "cpu", "kind": "cpu", "count": 0, "memory_peak_bytes": 0}
-    return {"platform": "gpu", "kind": torch.cuda.get_device_name(0), "count": 1, "memory_peak_bytes": int(peak)}
+        return {"platform": "cpu", "kind": "cpu", "count": count, "memory_peak_bytes": 0}
+    return {"platform": "gpu", "kind": torch.cuda.get_device_name(0), "count": count, "memory_peak_bytes": int(peak)}
 
 
 def banned_loaded() -> list[str]:
@@ -197,7 +222,14 @@ def print_checks(checks: dict) -> None:
 
 
 def run_cell(cell: Cell, bench: dict) -> tuple[dict, dict]:
-    """Runs the cell's driver: (the result line, the driver's outcome); prints nothing to stdout."""
-    outcome = driver(cell.traffic["kind"], cell.here).run(cell)
+    """Runs the cell's driver, in this process or over ranks (``perfbench/ranks.py``): (the result
+    line, the driver's outcome, with ``banned`` from the ranks); prints nothing to stdout."""
+    drv = driver(cell.traffic["kind"], cell.here)
+    if hasattr(drv, "run_rank"):
+        from perfbench import ranks
+
+        outcome = ranks.run(cell)
+    else:
+        outcome = drv.run(cell)
     outcome["correct"] = judge(outcome["checks"]) and outcome["failed"] == 0 and outcome["attempted"] > 0
     return result_line(cell, outcome, bench), outcome

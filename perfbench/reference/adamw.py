@@ -14,9 +14,11 @@ import math
 import torch
 
 
-def clipped(grads: dict, max_norm: float) -> dict:
-    """The gradients scaled to a global L2 norm of at most ``max_norm``."""
-    norm = torch.sqrt(sum(g.double().square().sum() for g in grads.values())).item()
+def clipped(grads: dict, max_norm: float, norm: float | None = None) -> dict:
+    """The gradients scaled to a global L2 norm of at most ``max_norm``; ``norm`` is that of every
+    leaf's gradient where ``grads`` hold some of the leaves only (by default, ``grads``'s own)."""
+    if norm is None:
+        norm = torch.sqrt(sum(g.double().square().sum() for g in grads.values())).item()
     scale = min(1.0, max_norm / max(norm, 1e-9))
     return {k: g * scale for k, g in grads.items()}
 
@@ -33,9 +35,9 @@ def init(params: dict) -> dict:
             "v": {k: torch.zeros_like(p) for k, p in params.items()}, "step": 0}
 
 
-def update(params: dict, grads: dict, state: dict, h: dict) -> tuple[dict, dict, dict]:
-    """One step: (new params, new state, the clipped gradients the moments took)."""
-    g = clipped(grads, h["grad_clip"])
+def update(params: dict, grads: dict, state: dict, h: dict, norm: float | None = None) -> tuple[dict, dict, dict]:
+    """One step: (new params, new state, the clipped gradients the moments took); ``norm`` as ``clipped``'s."""
+    g = clipped(grads, h["grad_clip"], norm)
     t = state["step"] + 1
     lr = learning_rate(h, t)
     b1, b2 = h["b1"], h["b2"]

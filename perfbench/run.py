@@ -3,12 +3,16 @@
     python3 perfbench/run.py --workload mamba2-780m.prompt-2k --seed 7 --seconds 51 --trace 0
 
 From the root of a checkout.  ``--trace 0`` measures the cell's end-to-end
-metrics, ``--trace 1`` its per-layer metrics (``BENCHMARK.json``).  Every
-run compares what its window produced with the plain reference and prints
-each number compared beside its limit, last on standard error and under
-``checks`` in the result line.  It exits with another code than 0, and
-prints no result, without enough CUDA devices, without the program under
-``src/``, or when JAX, Flax or the JAX package ``repro`` was loaded.
+metrics, ``--trace 1`` its per-layer metrics (``BENCHMARK.json``).  A cell
+runs in this process on one card, or, where its driver runs by ranks, in
+one process a card (``perfbench/ranks.py``; ``chips`` in its entry), rank
+0's outcome printed here.  Every run compares what its window produced
+with the plain reference and prints each number compared beside its
+limit, last on standard error and under ``checks`` in the result line.  It
+exits with another code than 0, and prints no result, without as many
+CUDA devices as the cell asks for, without the program under ``src/``,
+when a rank fails or outlasts the frame's limit, or when this process or
+any rank loaded JAX, Flax or the JAX package ``repro``.
 """
 
 from __future__ import annotations
@@ -57,10 +61,14 @@ def main(argv=None) -> int:
         print(f"{args.workload} needs {entry['chips']} CUDA device(s); this machine has {n}", file=sys.stderr)
         return 2
     torch.set_num_threads(int(os.environ["OMP_NUM_THREADS"]))
-    line, outcome = harness.run_cell(cell, bench)
-    banned = harness.banned_loaded()
+    try:
+        line, outcome = harness.run_cell(cell, bench)
+    except harness.RanksFailed as failed:
+        print(f"{args.workload}: {failed}", file=sys.stderr)
+        return 4
+    banned = sorted(set(harness.banned_loaded()) | set(outcome.get("banned", [])))
     if banned:
-        print(f"the process loaded {banned}: the benchmark measures the port alone", file=sys.stderr)
+        print(f"the process or a rank loaded {banned}: the benchmark measures the port alone", file=sys.stderr)
         return 3
     harness.print_checks(outcome["checks"])
     print(json.dumps(line), flush=True)

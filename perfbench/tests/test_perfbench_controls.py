@@ -17,9 +17,12 @@ from perfbench import harness
 from perfbench.tests.conftest import ROOT
 from perfbench.tests.test_perfbench_harness import BENCH, WORKLOADS, small_cell
 
-KINDS = {w: harness.load_cell(w, 1, 1.0, False, 0.0, ROOT)[0].traffic["kind"] for w in WORKLOADS}
-SERVE = [w for w, kind in KINDS.items() if kind == "serve"]
-TRAIN = [w for w, kind in KINDS.items() if kind == "train"]
+DRIVERS = {w: harness.driver(harness.load_cell(w, 1, 1.0, False, 0.0, ROOT)[0].traffic["kind"]) for w in WORKLOADS}
+#: the one-process cells by the faults that their drivers name (a ranked kind's are planted in test_perfbench_ranks)
+SERVE = [w for w, drv in DRIVERS.items() if "fault_token" in drv.FAULTS and not hasattr(drv, "run_rank")]
+TRAIN = [w for w, drv in DRIVERS.items() if "fault_half_batch" in drv.FAULTS and not hasattr(drv, "run_rank")]
+#: a serving kind of another name, added as a driver file (``serve.py``'s text) and a mix
+NEW_KIND = "serve_again"
 
 
 def _altered_generate(monkeypatch):
@@ -80,7 +83,7 @@ def test_the_fp8_control_reads_far_above_the_program_when_serving(seed):
     from perfbench import calibrate
 
     cell = small_cell(SERVE[0], seed=seed, traffic={"check_requests": 4})
-    readings = calibrate.serve_readings(cell, control=True)
+    readings = calibrate.readings(cell, control=True)
     assert readings["control.logit_gap"] >= 3 * max(readings["logit_gap"], 1e-3)
     assert readings["fault_token.logit_gap"] > readings["logit_gap"]
 
@@ -88,20 +91,55 @@ def test_the_fp8_control_reads_far_above_the_program_when_serving(seed):
 def test_the_fp8_control_reads_far_above_the_program_when_training():
     from perfbench import calibrate
 
-    readings = calibrate.train_readings(small_cell(TRAIN[0], seed=33), control=True)
+    readings = calibrate.readings(small_cell(TRAIN[0], seed=33), control=True)
     assert readings["control.grad_gap"] >= 3 * readings["grad_gap"]
     assert readings["fault_unchanged.grad_gap"] == readings["fault_unchanged.change_gap"] == 1.0
+
+
+def test_a_one_process_kind_added_as_files_gives_its_readings_without_edits(tmp_path):
+    """``calibrate.py`` takes a new kind's readings and the multiples it counts them at from its driver."""
+    import json
+    import shutil
+
+    from perfbench import calibrate
+    from perfbench.tests.test_perfbench_harness import _digest, copy_tree
+
+    here = copy_tree(tmp_path)
+    before = _digest(tmp_path)
+    shutil.copy(here / "drivers/serve.py", here / f"drivers/{NEW_KIND}.py")
+    mix = {**json.loads((here / "traffic/prompt-2k.json").read_text()), "kind": NEW_KIND}
+    (here / f"traffic/{NEW_KIND}.json").write_text(json.dumps(mix))
+    name = f"mamba2-780m.{NEW_KIND}"
+    (here / f"limits/{name}.json").write_text((here / f"limits/{SERVE[0]}.json").read_text())
+    bench = json.loads((tmp_path / "BENCHMARK.json").read_text())
+    bench["workloads"].append({"name": name, "config": "mamba2-780m", "traffic": NEW_KIND, "chips": 1, "why": "test"})
+    (tmp_path / "BENCHMARK.json").write_text(json.dumps(bench))
+
+    cell = small_cell(name, seed=34, root=tmp_path)
+    assert cell.traffic["kind"] == NEW_KIND and cell.model == small_cell(SERVE[0]).model  # its SMALL_KEEPS
+    readings = calibrate.readings(cell, control=True)
+    assert set(readings) == {"logit_gap", "control.logit_gap", "fault_token.logit_gap"}
+    faults = harness.driver(NEW_KIND, cell.here).FAULTS
+    summary = calibrate.summary([readings], faults)["logit_gap"]
+    assert summary["readings"] == {"control": readings["control.logit_gap"],
+                                   "fault_token": readings["fault_token.logit_gap"]}
+    assert summary["lower"] == readings["logit_gap"]
+    after = _digest(tmp_path)
+    assert {k: v for k, v in after.items() if k in before} == before  # no file that was there changed
 
 
 @pytest.mark.card
 @pytest.mark.parametrize("workload", WORKLOADS)
 def test_the_control_fails_every_cell_at_its_size(workload, card):
     """At the cell's own sizes on three seeds: the program within every limit, the control past one."""
+    import torch
+
     from perfbench import calibrate
 
+    if harness.load_cell(workload, 1, 0.0, False, 0.0, ROOT)[1]["chips"] > torch.cuda.device_count():
+        pytest.skip(f"{workload} needs more cards than this machine has")
     for seed in (2147483001, 2147483002, 2147483003):
         cell, _ = harness.load_cell(workload, seed, 0.0, False, 0.0, ROOT)
-        fn = calibrate.serve_readings if cell.traffic["kind"] == "serve" else calibrate.train_readings
-        readings = fn(cell, control=True)
+        readings = calibrate.readings(cell, control=True)
         assert all(readings[k] <= lim for k, lim in cell.limits.items()), readings
         assert any(readings[f"control.{k}"] > lim for k, lim in cell.limits.items()), readings

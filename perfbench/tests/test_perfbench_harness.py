@@ -28,23 +28,23 @@ UNIT = re.compile(r"^[A-Za-z0-9_/%.-]{1,16}$")
 
 
 def small_cell(workload: str, seed: int = 3, traffic: dict | None = None, root=ROOT):
-    """``workload`` at the port's reduced sizes on the CPU, its traffic shrunk by ``traffic``; the
-    sizes cut are listed in ``reduced``, as a configuration file would list them.  A serving cell
-    keeps ``d_model``: the tied head's logits, which its comparison reads, scale with it."""
+    """``workload`` at the port's reduced sizes on the CPU, its traffic shrunk to its driver's ``SMALL``
+    and then by ``traffic``; the sizes cut are listed in ``reduced``, as a configuration file would
+    list them.  The sizes in the driver's ``SMALL_KEEPS`` stay (serving keeps ``d_model``: the tied
+    head's logits, which its comparison reads, scale with it)."""
     from repro_torch.configs import get_config
     from repro_torch.models.config import reduced
 
     cell, _ = harness.load_cell(workload, seed, 0.5, False, time.perf_counter(), root=root, device="cpu")
+    drv = harness.driver(cell.traffic["kind"], cell.here)
     small = reduced(get_config(cell.config["arch"]))
-    keep = set(harness.EXECUTION_KEYS) | ({"d_model"} if cell.traffic["kind"] == "serve" else set())
+    keep = set(harness.EXECUTION_KEYS) | set(drv.SMALL_KEEPS)
     model = {k: (v if k in keep or isinstance(v, bool) else getattr(small, k))
              for k, v in cell.config["model"].items()}
     published = cell.config["published"]
     cell.config = {**cell.config, "model": model,
                    "reduced": [k for k, v in published.items() if k not in model or model[k] != v]}
-    shrink = {"serve": {"batch": 2, "prompt": 40, "gen": 5, "check_requests": 3},
-              "train": {"batch": 16, "seq": 64}}[cell.traffic["kind"]]
-    cell.traffic = {**cell.traffic, **shrink, **(traffic or {})}
+    cell.traffic = {**cell.traffic, **drv.SMALL, **(traffic or {})}
     return cell
 
 
@@ -53,13 +53,26 @@ def _digest(root) -> dict:
             for p in sorted((root / "perfbench").rglob("*")) if p.is_file() and "__pycache__" not in p.parts}
 
 
+def copy_tree(root):
+    """A checkout's benchmark under ``root``: ``BENCHMARK.json`` and ``perfbench/`` copied, ``src`` linked."""
+    (root / "src").symlink_to(ROOT / "src")
+    shutil.copytree(ROOT / "perfbench", root / "perfbench", ignore=shutil.ignore_patterns("__pycache__"))
+    shutil.copy(ROOT / "BENCHMARK.json", root / "BENCHMARK.json")
+    return root / "perfbench"
+
+
 @pytest.mark.parametrize("workload", WORKLOADS)
 def test_every_cells_files_load_by_name(workload):
     cell, entry = harness.load_cell(workload, 1, 1.0, False, 0.0, ROOT)
     conf = next(c for c in BENCH["configs"] if c["name"] == entry["config"])
     assert cell.config == json.loads((ROOT / conf["file"]).read_text())
-    assert cell.traffic["kind"] in ("serve", "train")
-    assert callable(harness.driver(cell.traffic["kind"]).run)
+    drv = harness.driver(cell.traffic["kind"])
+    ranked = hasattr(drv, "run_rank")
+    assert callable(drv.run_rank if ranked else drv.run)
+    assert callable(drv.readings_rank if ranked else drv.readings)  # calibrate.py's, by the driver alone
+    assert isinstance(drv.SMALL, dict) and drv.SMALL and isinstance(drv.SMALL_KEEPS, tuple)
+    assert isinstance(drv.FAULTS, dict) and drv.FAULTS["control"] == 3
+    assert cell.chips == entry["chips"]
     cfg = harness.port_config(cell.config)
     for key, value in cell.config["model"].items():
         assert getattr(cfg, key) == value
@@ -70,11 +83,8 @@ def test_every_cells_files_load_by_name(workload):
 
 
 def test_a_config_mix_cell_and_metric_added_as_files_are_found_without_edits(tmp_path):
-    (tmp_path / "src").symlink_to(ROOT / "src")
-    shutil.copytree(ROOT / "perfbench", tmp_path / "perfbench", ignore=shutil.ignore_patterns("__pycache__"))
-    shutil.copy(ROOT / "BENCHMARK.json", tmp_path / "BENCHMARK.json")
+    here = copy_tree(tmp_path)
     before = _digest(tmp_path)
-    here = tmp_path / "perfbench"
     config = json.loads((here / "configs/mamba2-780m.json").read_text())
     (here / "configs/mamba2-780m-short.json").write_text(json.dumps({**config, "source": "copy for the test"}))
     traffic = {**json.loads((here / "traffic/prompt-2k.json").read_text()), "gen": 4}
@@ -174,7 +184,16 @@ def test_the_benchmark_json_keeps_to_its_contract():
     for w in WORKLOADS:
         assert any(harness.applies(m, w) and m["name"] != "setup_s" for m in BENCH["end_to_end"])
         assert any(harness.applies(m, w) for m in BENCH["per_layer"])
-    assert all(w["chips"] == 1 for w in BENCH["workloads"])
+    chips = [w["chips"] for w in BENCH["workloads"]]
+    assert all(c in (1, 4) for c in chips)
+    assert chips.count(4) <= max(1, len(chips) // 4, len(_accepted_four_chip_cells()))
+
+
+def _accepted_four_chip_cells() -> set:
+    """The four-chip cells of the accepted benchmark, by `PERF_LEDGER.jsonl` (none without one)."""
+    ledger = ROOT / "PERF_LEDGER.jsonl"
+    lines = [json.loads(line) for line in ledger.read_text().splitlines() if line.strip()] if ledger.exists() else []
+    return {x["workload"] for x in lines if x.get("verdict") == "accepted" and x.get("chips") == 4}
 
 
 @pytest.mark.parametrize("change", ["departure_not_listed", "listed_but_as_published", "no_published_value"])
@@ -209,8 +228,12 @@ def test_nothing_under_perfbench_imports_jax_or_the_jax_package():
 
 
 def test_the_reference_imports_nothing_of_the_program():
+    """Every file under ``reference/``, the families' too: no absolute import of the program, the JAX
+    package or the benchmark, and relative imports only of the reference's own modules."""
     for path in (ROOT / "perfbench" / "reference").rglob("*.py"):
         assert not _imported_tops(path) & (BANNED | {"repro_torch", "perfbench"}), path
+        relative = [n for n in ast.walk(ast.parse(path.read_text())) if isinstance(n, ast.ImportFrom) and n.level]
+        assert all(n.level == 1 for n in relative), path
 
 
 def test_banned_modules_are_compared_by_their_whole_top_level_name(monkeypatch):

@@ -10,6 +10,10 @@ defining recurrence.
 """
 
 import dataclasses
+import hashlib
+import json
+import subprocess
+import sys
 
 import numpy as np
 import pytest
@@ -19,6 +23,8 @@ from perfbench import weights
 from perfbench.reference import adamw as ref_adamw
 from perfbench.reference import lowp
 from perfbench.reference import model as ref
+from perfbench.reference import ssm
+from perfbench.tests.test_perfbench_harness import copy_tree
 
 FP32_REL_L2 = 1e-4
 # bf16 steps at every product, silu and residual add: reduced mamba2 reads 1.1e-2 on
@@ -53,7 +59,7 @@ def test_ssd_is_the_recurrence():
         ys.append(torch.einsum("bhpn,bn->bhp", state, cm[:, t]))
     want = torch.stack(ys, 1)
     for chunk in (64, 128):
-        assert _rel_l2(ref.ssd(x, log_a, bm, cm, chunk), want) < 1e-5
+        assert _rel_l2(ssm.ssd(x, log_a, bm, cm, chunk), want) < 1e-5
 
 
 @pytest.fixture(params=["float32", "bfloat16"])
@@ -127,3 +133,84 @@ def test_the_fp8_control_rounds_to_three_mantissa_bits():
     assert 1e-3 < _rel_l2(out, a @ b) < 0.1
     out.sum().backward()
     assert a.grad.shape == a.shape and b.grad.shape == b.shape
+
+
+#: reduced mamba2's weights for seed 2147483999 (float32, then bfloat16) and the reference's loss and
+#: gradients on them, as the tree before the ssm family moved into ``reference/ssm.py`` gave them
+PINNED = {"weights": "401502c66a5d795a910eb9887c19d2c8cddd0de881540a131f0ebcb981ad9cff",
+          "loss": "0x1.ae471c0000000p+2",
+          "grads": "107f637fe7e84dca22972037a430dbd35d80f10852a49f2114b4f69bb4d4b951"}
+
+
+def test_weights_and_the_references_loss_are_bit_for_bit_as_pinned():
+    _, m = _tiny(False)
+    digest = hashlib.sha256()
+    for dtype in (torch.float32, torch.bfloat16):
+        for path, t in weights.named_leaves(weights.make("ssm", m, 2147483999, "cpu", dtype)):
+            digest.update(path.encode() + b"\0" + str(t.dtype).encode() + b"\0"
+                          + t.contiguous().view(torch.uint8).numpy().tobytes())
+    assert digest.hexdigest() == PINNED["weights"]
+    params = weights.make("ssm", m, 2147483999, "cpu", torch.float32)
+    ids = torch.as_tensor(np.random.default_rng(7).integers(0, m["vocab"], size=(2, 161)))
+    leaves = {k: p.detach().requires_grad_() for k, p in weights.named_leaves(params)}
+    with ref.fp32_matmuls():
+        loss = ref.loss("ssm", weights.unflatten(leaves), m, ids[:, :-1], ids[:, 1:])
+        grads = torch.autograd.grad(loss, list(leaves.values()))
+    assert float(loss.detach()).hex() == PINNED["loss"]
+    digest = hashlib.sha256()
+    for k, g in zip(leaves, grads):
+        digest.update(k.encode() + b"\0" + g.numpy().tobytes())
+    assert digest.hexdigest() == PINNED["grads"]
+
+
+#: a family added as a file: one product a layer, and a kind of leaf of its own
+TOY_FAMILY = '''
+import torch
+
+from .model import fp32_matmul, linear
+
+KINDS = {"halves": lambda shape, **f32: torch.full(shape, 0.5, **f32)}
+
+
+def layer_specs(m):
+    return [(f"layers.{i}.{name}", shape, kind, scale) for i in range(m["n_layers"])
+            for name, shape, kind, scale in (("w", (m["d_model"], m["d_model"]), "normal", 0.1),
+                                             ("gate", (m["d_model"],), "halves", None))]
+
+
+def layers(x, params, m, run, matmul=fp32_matmul):
+    for p in params["layers"]:
+        x = run(lambda x_, p_=p: x_ + linear(x_, p_["w"], matmul) * p_["gate"], x)
+    return x
+'''
+TOY_RUN = """
+import json, torch
+from perfbench import weights
+from perfbench.reference import model
+m = {"d_model": 8, "vocab": 32, "n_layers": 2, "norm_eps": 1e-5, "tie_embeddings": True}
+params = weights.make("toy", m, 5, "cpu", torch.float32)
+tokens = torch.arange(12).reshape(2, 6)
+x = model.hidden_states("toy", params, m, tokens)
+print(json.dumps({"paths": [p for p, *_ in weights.leaf_specs("toy", m)], "shape": list(x.shape),
+                  "gate": params["layers"][1]["gate"].tolist(), "module": model.family_module("toy").__file__}))
+"""
+
+
+def test_a_family_added_as_a_file_is_found_by_its_name(tmp_path):
+    here = copy_tree(tmp_path)
+    (here / "reference/toy.py").write_text(TOY_FAMILY)
+    proc = subprocess.run([sys.executable, "-c", TOY_RUN], cwd=tmp_path, capture_output=True, text=True, timeout=300)
+    assert proc.returncode == 0, proc.stderr
+    found = json.loads(proc.stdout.strip().splitlines()[-1])
+    assert found["paths"] == ["embed", "final_norm", "layers.0.w", "layers.0.gate", "layers.1.w", "layers.1.gate"]
+    assert found["shape"] == [2, 6, 8] and found["gate"] == [0.5] * 8
+    assert found["module"] == str(here / "reference/toy.py")
+
+
+@pytest.mark.parametrize("family", ["absent_family", "no-such-family"])
+def test_a_family_without_a_file_is_refused_naming_the_file(family):
+    m = {"d_model": 8, "vocab": 32, "n_layers": 1, "tie_embeddings": True}
+    for call in (lambda: weights.leaf_specs(family, m),
+                 lambda: ref.hidden_states(family, {"embed": torch.zeros(32, 8)}, m, torch.zeros(1, 2).long())):
+        with pytest.raises(ValueError, match=f"reference/{family}.py"):
+            call()
