@@ -46,6 +46,14 @@ Phases, each failing loudly (an exception or a non-zero exit):
    both by CUDA-graph replay, beside the kernel's byte bound
    (``check_ssm_mixer``; the ``{"ssm_mixer": ...}`` line, which also carries
    each slice's launches);
+3d. the dropless MoE's grouped expert products (``csrc/moe_grouped.cu``) at
+   olmoe-1b-7b-0924.prompt-4k's shapes (``MOE_GROUPED_SHAPES``): the entry
+   point for many rows an expert at the prefill's 8 x 4,080 tokens and the
+   one for a few at a decode step's 8, each against the plain version on the
+   same inputs (``moe_grouped_ok``), timed by CUDA-graph replay beside its
+   bound over the experts hit, the plain version and, where this torch has
+   it, ``torch._grouped_mm`` (a yardstick only), with the profiler's kernel
+   names (``check_moe_grouped``; the ``{"moe_grouped": ...}`` line);
 4. the slices, each at full width and full depth with random bf16 weights
    from a seeded ``torch.Generator``, serving batch 4, prompt 512, gen 32
    through ``repro_torch.launch.serve.generate``:
@@ -102,6 +110,13 @@ Phases, each failing loudly (an exception or a non-zero exit):
    card's inputs; mamba2 and zamba2 prompt 200, which crosses a chunk
    boundary with a ragged tail; the new slices' kernel calls held against
    their plain versions, see ``HYBRID_FLOOR_FACTOR``);
+5b. olmoe-1b-7b-0924, the published OLMoE (QK-norm, raw top-8 of 64,
+   dropless), at batch 4, prompt 512, gen 32: 16 flash and 48 grouped
+   launches a ``generate`` (``expected_launches``), every grouped call of a
+   prefill against the plain version, the first token against the prefill's
+   argmax, the graph's tokens equal to eager decoding's, ``moe_block`` under
+   sync debug mode "error", and its prefill, eager decode step and generate
+   timed (``published_moe_slice``; the ``{"published_moe": ...}`` line);
 5. timings from CUDA events after a warm-up, per slice: prefill, decode,
    tok/s and peak memory, and a torch.profiler pass over one prefill and one
    decode step (wall time, device-busy time, the device's idle share, the top
@@ -321,7 +336,7 @@ TRAIN_REL_L2 = 2e-2
 RESUME_TOL = 1e-6
 WHISPER_PROMPT = 416  # prompt + GEN = 448 positions, whisper's decoder context
 # The kernels a generate launches; the first two are also timed at each slice's shapes
-KERNELS = ("flash_attention", "ssd_scan", *MIXER_KERNELS)
+KERNELS = ("flash_attention", "ssd_scan", *MIXER_KERNELS, "moe_grouped_mm")
 SLICE_TIMED = KERNELS[:2]
 SLICES = {  # arch -> (prompt length at full width, reduced prompt length for the card-vs-CPU check)
     "qwen2-1.5b": (PROMPT, 24),
@@ -377,6 +392,8 @@ def device_ms(fn, calls: int = 20, warmup: int = 3, sessions: int = 3, retries: 
     import torch
     from torch.profiler import ProfilerActivity, profile, schedule
 
+    from repro_torch import phases
+
     for _ in range(warmup):
         fn()
     torch.cuda.synchronize()
@@ -389,8 +406,12 @@ def device_ms(fn, calls: int = 20, warmup: int = 3, sessions: int = 3, retries: 
                 if i in (0, calls):  # a graph replay returns at once: keep its
                     torch.cuda.synchronize()  # warm-up call's kernels out of the window
                 prof.step()
+        # the port's phases are ranges of the profiler too (record_function), and each has a shadow
+        # on the device's timeline under its own name: a range, not a kernel
+        ranges = phases.names()
         kernels = [e for e in prof.key_averages() if e.device_type == torch.autograd.DeviceType.CUDA
-                   and not e.key.startswith("ProfilerStep")]  # the schedule's step range, not a kernel
+                   and not e.key.startswith("ProfilerStep")  # the schedule's step range, not a kernel
+                   and not e.is_user_annotation and e.key not in ranges]
         total_us = sum(e.self_device_time_total for e in kernels)
         top = sorted(((e.key, e.self_device_time_total / 1e3 / calls) for e in kernels), key=lambda t: -t[1])
         runs.append((total_us / 1e3 / calls, sum(e.count for e in kernels) / calls, top))
@@ -408,8 +429,21 @@ def fmt(x, spec: str = ".4f") -> str:
     return "not measured" if x is None else format(x, spec)
 
 
+# On an H100 the profiler's kernel times over a CUDA-graph replay sum to up to 2.2 % more than the
+# CUDA events around it; a profiler range counted as a kernel reads far lower (-0.29 and -1.30 seen)
+IDLE_SLACK = 0.05
+
+
 def idle_share(busy_ms, wall_ms: float):
-    return None if busy_ms is None else 1.0 - busy_ms / wall_ms
+    """The device's idle share of ``wall_ms``; raises outside [-IDLE_SLACK, 1], which no profile of
+    the call's own kernels gives."""
+    if busy_ms is None:
+        return None
+    share = 1.0 - busy_ms / wall_ms
+    if not -IDLE_SLACK <= share <= 1.0:
+        raise AssertionError(f"idle share {share:.3f} ({busy_ms:.3f} ms busy of {wall_ms:.3f}): the profile "
+                             f"counts more than the call's kernels, or the wall time misses them")
+    return share
 
 
 def graph_ms(fn, calls: int = 20, reps: int = 5) -> float:
@@ -699,6 +733,201 @@ def time_ssm_mixer() -> dict:
     return out
 
 
+# The dropless MoE's grouped expert products (csrc/moe_grouped.cu) at olmoe-1b-7b-0924.prompt-4k's
+# shapes, (tokens, top-k, experts, d_model, d_ff): the prefill's 8 x 4,080 tokens (the entry point for
+# many rows an expert) and a decode step's 8 (the one for a few).
+MOE_GROUPED_SHAPES = {"prefill": (8 * 4080, 8, 64, 2048, 1024), "decode": (8, 8, 64, 2048, 1024)}
+# Both versions round each product once to bf16 and silu at each of its steps, but the tensor cores
+# sum in another order than cuBLAS, so a sum that lies on a bf16 rounding boundary may round the
+# other way: an element of h one step off moves y by one term in 1,024, and y's own sum may tip.  So
+# every element within BF16_TOL, a relative L2 gap under MOE_GROUPED_REL_L2 (one bf16 step is 2^-8,
+# 3.9e-3, of an element), and at least MOE_GROUPED_EQUAL of y's elements bit-equal.  A wrong row,
+# expert or column reads about 1.
+MOE_GROUPED_REL_L2 = 1e-2
+MOE_GROUPED_EQUAL = 0.9
+PUBLISHED_MOE = "olmoe-1b-7b-0924"
+
+
+def moe_grouped_inputs(tokens: int, top_k: int, experts: int, d: int, f: int, seed: int):
+    """``ops.moe_grouped_mm``'s arguments for ``tokens`` RMS-normed rows routed by a random router
+    (raw top-k, ``models.moe.route``) and sorted by expert (``models.moe.sort_entries``), with
+    N(0, 1/fan_in) experts; and the number of experts hit."""
+    import torch
+
+    from repro_torch.models import moe
+
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+
+    def rnd(*shape, fan_in):
+        return (torch.randn(shape, generator=gen, device="cuda") / math.sqrt(fan_in)).bfloat16()
+
+    x = rnd(tokens, d, fan_in=1)
+    w_in, w_gate, w_out = rnd(experts, d, f, fan_in=d), rnd(experts, d, f, fan_in=d), rnd(experts, f, d, fan_in=f)
+    _, top_i, _ = moe.route(x, rnd(d, experts, fan_in=d), top_k, False)
+    src, dst, offsets = moe.sort_entries(top_i, experts)
+    hit = int((offsets[1:] > offsets[:-1]).sum())
+    return (x, w_in, w_gate, w_out, src, dst, offsets), hit
+
+
+def moe_grouped_ok(got, want) -> tuple[bool, float, float]:
+    """(within the bars, relative L2 gap, share of elements bit-equal)."""
+    import torch
+
+    rel = ((got.float() - want.float()).norm() / want.float().norm()).item()
+    same = (got == want).float().mean().item()
+    close = torch.allclose(got.float(), want.float(), **BF16_TOL)
+    return close and rel <= MOE_GROUPED_REL_L2 and same >= MOE_GROUPED_EQUAL, rel, same
+
+
+def grouped_mm_library(args, calls: int):
+    """The same function through ``torch._grouped_mm`` (the rows gathered, three grouped products, silu
+    and the product in bf16, the rows scattered to their entries), by graph replay: (ms, how), or
+    (None, why) where this torch has no such call or refuses the operands."""
+    import torch
+    import torch.nn.functional as F
+
+    if not hasattr(torch, "_grouped_mm"):
+        return None, "this torch has no _grouped_mm"
+    x, w_in, w_gate, w_out, src, dst, offsets = args
+    ends = offsets[1:]
+
+    def run(wi, wg, wo):
+        xs = x[src.long()]
+        h = torch._grouped_mm(xs, wi, offs=ends) * F.silu(torch._grouped_mm(xs, wg, offs=ends))
+        return torch.empty_like(xs).index_copy_(0, dst.long(), torch._grouped_mm(h, wo, offs=ends))
+
+    why = ""
+    for how in ("row-major weights", "column-major weights"):
+        ws = (w_in, w_gate, w_out)
+        if how.startswith("column"):
+            ws = tuple(w.transpose(-2, -1).contiguous().transpose(-2, -1) for w in ws)
+        try:
+            run(*ws)
+            torch.cuda.synchronize()
+            return graph_ms(lambda: run(*ws), calls=calls, reps=3), how
+        except RuntimeError as exc:
+            why = f"{how}: {str(exc).splitlines()[0][:160]}"
+    return None, why
+
+
+def check_moe_grouped() -> dict:
+    """Phase 3d: both entry points of the grouped expert products against the plain version on the
+    same inputs at the cell's prefill and decode shapes (``moe_grouped_ok``), then timed by CUDA-graph
+    replay beside the bound (``costs.moe_grouped_cost`` over the experts hit), the plain version (CUDA
+    events: it reads the offsets on the host) and ``torch._grouped_mm``; the profiler's kernel names
+    of one call."""
+    import torch
+
+    from repro_torch.kernels import costs, ops, ref
+
+    t0 = time.perf_counter()
+    out = {}
+    for shape, (t, k, e, d, f) in MOE_GROUPED_SHAPES.items():
+        args, hit = moe_grouped_inputs(t, k, e, d, f, SEED + 11)
+        got, want = ops.moe_grouped_mm(*args), ref.moe_grouped_mm_ref(*args)
+        torch.cuda.synchronize()
+        ok, rel, same = moe_grouped_ok(got, want)
+        err = (got.float() - want.float()).abs().max().item()
+        del got, want
+        log(f"kernel moe_grouped_mm at the {shape} shape (T {t}, top {k} of {e}, D {d}, F {f}; {hit} experts hit) "
+            f"against its plain version: rel L2 {rel:.3e}, share bit-equal {same:.6f}, max abs {err:.3e} "
+            f"{'ok' if ok else 'FAIL'}")
+        if not ok:
+            raise AssertionError(f"moe_grouped_mm disagrees with its plain version at the {shape} shape")
+        calls = 3 if shape == "prefill" else 20
+        ms = graph_ms(lambda: ops.moe_grouped_mm(*args), calls=calls, reps=3)
+        plain_ms = cuda_time_ms(lambda: ref.moe_grouped_mm_ref(*args), reps=3, warmup=1)
+        library_ms, library_how = grouped_mm_library(args, calls)
+        cost = costs.moe_grouped_cost(t * k, hit, d, f)
+        bound_ms, bound_by = _bound(*cost, torch.bfloat16)
+        prof = device_ms(lambda: ops.moe_grouped_mm(*args), calls=2, warmup=1, sessions=1)
+        out[shape] = {"tokens": t, "rows": t * k, "experts_hit": hit, "ms": ms, "plain_ms": plain_ms,
+                      "library_ms": library_ms, "library": library_how, "bound_ms": bound_ms, "bound_by": bound_by,
+                      "bound_share": bound_ms / ms, "bytes": cost[0], "flops": cost[1], "rel_l2": rel,
+                      "share_bit_equal": same, "max_abs_err": err,
+                      "kernels": [[name, kms] for name, kms in prof["top"][:4]]}
+        log(f"kernel moe_grouped_mm {shape}: {ms:.4f} ms a call by CUDA-graph replay, plain {plain_ms:.4f} ms, "
+            f"torch._grouped_mm {fmt(library_ms)} ms ({library_how}), bound {bound_ms:.4f} ms ({bound_by}), "
+            f"bound share {bound_ms / ms:.3f}; profiled kernels "
+            + "; ".join(f"{name[:48]} {kms:.4f}" for name, kms in prof["top"][:4]))
+    out["seconds"] = time.perf_counter() - t0
+    return out
+
+
+def published_moe_slice() -> dict:
+    """Phase 5b: olmoe-1b-7b-0924 (QK-norm, raw top-8 of 64, dropless) served at full width through
+    ``generate``: its launches against ``expected_launches``, every grouped call of a prefill against
+    the plain version on the same inputs, the first token against the prefill's argmax, the graph's
+    tokens against eager decoding, ``moe_block`` under sync debug mode "error", and the prefill,
+    decode step and generate timed."""
+    import numpy as np
+    import torch
+
+    from repro_torch.kernels import ops, ref
+    from repro_torch.launch.serve import generate
+    from repro_torch.models import transformer as T
+
+    t0 = time.perf_counter()
+    cfg = slice_config(PUBLISHED_MOE)
+    expected = expected_launches(cfg)
+    params = T.init_params(cfg, torch.Generator(device="cuda").manual_seed(SEED), "cuda")
+    prompts = np.random.default_rng(SEED).integers(1, cfg.vocab, size=(BATCH, PROMPT))
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    for name in KERNELS:
+        getattr(ops, name).launches = 0
+    tokens = generate(cfg, params, prompts, GEN, device="cuda")
+    torch.cuda.synchronize()
+    launches = {name: getattr(ops, name).launches for name in KERNELS}
+    peak_gib = torch.cuda.max_memory_allocated() / 2**30
+    log(f"generate {PUBLISHED_MOE}: tokens {tuple(tokens.shape)}, launches {launches} (expected {expected}), "
+        f"peak memory {peak_gib:.2f} GiB")
+    assert launches == expected, f"{PUBLISHED_MOE}: launches {launches}, expected {expected}"
+
+    errors = []
+    launch = ops._moe_launch
+
+    def checked(*args):
+        y = launch(*args)
+        errors.append(moe_grouped_ok(y, ref.moe_grouped_mm_ref(*args)))
+        return y
+
+    batch = {"tokens": torch.as_tensor(prompts, device="cuda")}
+    ops._moe_launch = checked
+    try:
+        with torch.no_grad():
+            logits = T.forward(params, cfg, batch, slice_cache(cfg, BATCH, PROMPT + GEN, "cuda"))[0]
+    finally:
+        ops._moe_launch = launch
+    worst = max(e[1] for e in errors)
+    log(f"{PUBLISHED_MOE} prefill: {len(errors)} grouped calls against the plain version, worst rel L2 {worst:.3e}, "
+        f"least share bit-equal {min(e[2] for e in errors):.6f}")
+    assert len(errors) == cfg.n_layers and all(e[0] for e in errors), f"{PUBLISHED_MOE}: a grouped call disagrees"
+    assert torch.equal(tokens[:, 0], logits[:, -1].argmax(-1)), "first token != prefill argmax"
+    del logits
+    with torch.no_grad():
+        eager = eager_generate(cfg, params, prompts, {}, PROMPT)
+    assert torch.equal(eager, tokens), f"{PUBLISHED_MOE}: the graph's tokens differ from eager decoding"
+    sync_free = check_moe_sync_free(cfg, params["layers"][0]["moe"])
+
+    with torch.no_grad():
+        cache = slice_cache(cfg, BATCH, PROMPT + GEN, "cuda")
+        prefill_ms = cuda_time_ms(lambda: T.forward(params, cfg, batch, cache), reps=3)
+        base = T.forward(params, cfg, batch, cache)[2]
+        step_tok = tokens[:, :1]
+        decode_ms = cuda_time_ms(lambda: T.forward(params, cfg, {"tokens": step_tok}, with_len(base, PROMPT)),
+                                 reps=5)
+        gen_ms = cuda_time_ms(lambda: generate(cfg, params, prompts, GEN, device="cuda"), reps=3, warmup=1)
+    line = {"arch": PUBLISHED_MOE, "batch": BATCH, "prompt": PROMPT, "gen": GEN,
+            "parameters": sum(t.numel() for t in _leaves(params)), "launches": launches, "peak_gib": peak_gib,
+            "grouped_calls_worst_rel_l2": worst, "graph_tokens_equal_eager": True, "sync_free": sync_free,
+            "prefill_ms": prefill_ms, "eager_decode_step_ms": decode_ms, "generate_ms": gen_ms,
+            "generate_tok_s": BATCH * GEN / gen_ms * 1e3, "phase_seconds": time.perf_counter() - t0}
+    log(f"{PUBLISHED_MOE} prefill {BATCH}x{PROMPT}: {prefill_ms:.3f} ms; eager decode step {decode_ms:.3f} ms; "
+        f"generate {BATCH}x{GEN}: {gen_ms:.3f} ms ({line['generate_tok_s']:.1f} tok/s)")
+    return line
+
+
 # The backward kernel's bars, each scaled by the largest magnitude of the
 # gradient it holds (gradients of long chunks sum many terms, so an absolute
 # bar fixed in advance would be loose for some and tight for others): fp32
@@ -929,7 +1158,11 @@ def expected_launches(cfg) -> dict:
     mamba layer; decode launches neither.  Each of the mixer's two kernels
     runs three times a mamba layer: in the prefill, in the decode step's
     eager warm-up and while the graph records (the replays go through no
-    wrapper).  A prefill alone launches each of them once a mamba layer."""
+    wrapper).  A prefill alone launches each of them once a mamba layer.
+    The grouped expert products of a dropless MoE (``moe_grouped_mm``) run
+    three times a MoE layer likewise, the prefill's call through the entry
+    point for many rows an expert, the decode step's through the one for a
+    few."""
     if cfg.family == "ssm":
         attn = 0
     elif cfg.family == "hybrid":
@@ -937,7 +1170,9 @@ def expected_launches(cfg) -> dict:
     else:
         attn = cfg.n_layers
     mamba = cfg.n_layers if cfg.family in ("ssm", "hybrid") else 0
-    return {"flash_attention": attn, "ssd_scan": mamba, **dict.fromkeys(MIXER_KERNELS, 3 * mamba)}
+    dropless = cfg.n_layers if getattr(cfg, "moe_dropless", False) else 0
+    return {"flash_attention": attn, "ssd_scan": mamba, **dict.fromkeys(MIXER_KERNELS, 3 * mamba),
+            "moe_grouped_mm": 3 * dropless}
 
 
 def slice_extras(cfg, batch: int, seed: int) -> dict:
@@ -1168,8 +1403,8 @@ def moe_recorded(record: list):
 
     route, dispatch = moe.route, moe.dispatch
 
-    def recording_route(xf, w_router, top_k):
-        out = route(xf, w_router, top_k)
+    def recording_route(xf, w_router, top_k, renormalize=True):
+        out = route(xf, w_router, top_k, renormalize)
         record.append({"top_i": out[1], "aux": out[2]})
         return out
 
@@ -1196,11 +1431,11 @@ def moe_pinned(record: list):
 
     route, calls = moe.route, iter(record)
 
-    def pinned_route(xf, w_router, top_k):
-        _, _, aux = route(xf, w_router, top_k)
+    def pinned_route(xf, w_router, top_k, renormalize=True):
+        _, _, aux = route(xf, w_router, top_k, renormalize)
         top_i = next(calls)["top_i"]
         top_p = torch.softmax(L.matmul_f32(xf, w_router), dim=-1).gather(1, top_i)
-        return top_p / top_p.sum(dim=-1, keepdim=True), top_i, aux
+        return (top_p / top_p.sum(dim=-1, keepdim=True) if renormalize else top_p), top_i, aux
 
     moe.route = pinned_route
     try:
@@ -2950,7 +3185,7 @@ def main() -> int:
 
     # ---- 2. build, one nvcc per source, all at once
     t0 = time.perf_counter()
-    to_build = (*TRAIN_KERNELS, "ssm_mixer")
+    to_build = (*TRAIN_KERNELS, "ssm_mixer", "moe_grouped")
     with ThreadPoolExecutor(len(to_build)) as pool:
         built = dict(zip(to_build, pool.map(build.build, to_build)))
     log(f"build: {len(to_build)} sources in {time.perf_counter() - t0:.1f} s")
@@ -2971,6 +3206,8 @@ def main() -> int:
     log(f"phase 3b: {time.perf_counter() - t0:.1f} s")
     # ---- 3c. the mixer's two kernels: card tests, and timed at prompt-2k's shape
     mixer = check_ssm_mixer()
+    # ---- 3d. the grouped expert products: both entry points at olmoe-1b-7b-0924.prompt-4k's shapes
+    moe_grouped = check_moe_grouped()
 
     # ---- 4 and 5. the slices, and each kernel at each of its slices' shapes
     slices, launches = [], {name: {} for name in KERNELS}
@@ -2984,6 +3221,11 @@ def main() -> int:
             if n:
                 launches[name][arch] = n
         torch.cuda.empty_cache()
+    # ---- 5b. the published OLMoE, dropless, through generate
+    published = published_moe_slice()
+    launches["moe_grouped_mm"][PUBLISHED_MOE] = published["launches"]["moe_grouped_mm"]
+    moe_grouped["launches_by_slice"] = launches["moe_grouped_mm"]
+    torch.cuda.empty_cache()
     timings = {name: {} for name in SLICE_TIMED}
     for name in SLICE_TIMED:
         for arch in launches[name]:
@@ -3096,6 +3338,8 @@ def main() -> int:
                                           "kernel_launches": dryrun["kernel_launches"]}}))
     log(json.dumps({"kernels": kernels}))
     log(json.dumps({"ssm_mixer": mixer}))
+    log(json.dumps({"published_moe": {**published, "card": smi}}))
+    log(json.dumps({"moe_grouped": moe_grouped}))
     log(json.dumps({"estimation": estimation}))
     log(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind, "count": count}}))
     return 0

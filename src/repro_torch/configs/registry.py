@@ -1,4 +1,6 @@
-"""Registry of the 10 assigned architectures (``--arch <id>``)."""
+"""Registry of the 10 assigned architectures (``--arch <id>``), and of the
+port's own configurations (``PORT_ONLY``), which the JAX reference has no
+counterpart of and ``ARCHS`` does not list."""
 
 from __future__ import annotations
 
@@ -17,6 +19,10 @@ ARCHS: tuple[str, ...] = (
     "mamba2-780m",
 )
 
+#: configurations only the port runs: published models whose mechanisms the
+#: reference's configs cannot state (``models.published``)
+PORT_ONLY: tuple[str, ...] = ("olmoe-1b-7b-0924",)
+
 _MODULES = {
     "zamba2-2.7b": "zamba2_2p7b",
     "granite-20b": "granite_20b",
@@ -28,11 +34,12 @@ _MODULES = {
     "qwen2-vl-2b": "qwen2_vl_2b",
     "whisper-medium": "whisper_medium",
     "mamba2-780m": "mamba2_780m",
+    "olmoe-1b-7b-0924": "olmoe_1b_7b_0924",
 }
 
 
 def get_config(arch: str):
     if arch not in _MODULES:
-        raise KeyError(f"unknown arch {arch!r}; choose from {ARCHS}")
+        raise KeyError(f"unknown arch {arch!r}; choose from {ARCHS + PORT_ONLY}")
     mod = importlib.import_module(f"repro_torch.configs.{_MODULES[arch]}")
     return mod.CONFIG

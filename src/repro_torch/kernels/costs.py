@@ -84,3 +84,14 @@ def ssm_gate_norm_cost(b: int, s: int, c: int, h: int, norm: bool) -> tuple[floa
     """
     nbytes = 2 * 4 * b * s * c + 4 * h + (4 * c if norm else 0)
     return float(nbytes), (2.0 * b * s * c if norm else 0.0)
+
+
+def moe_grouped_cost(rows: int, experts: int, d: int, f: int, elt: int = 2) -> tuple[float, float]:
+    """(bytes, FLOPs) of the grouped expert products (``ops.moe_grouped_mm``) over ``rows`` routed
+    entries that fall on ``experts`` distinct experts: those experts' gate, up and down weights
+    (D x F each) read once, and the gathered rows in (D) and out (D) once, in ``elt`` bytes.
+
+    FLOPs: the three products of every row, 2 D F each.
+    """
+    nbytes = elt * (3 * experts * d * f + 2 * rows * d)
+    return float(nbytes), 6.0 * rows * d * f

@@ -13,9 +13,14 @@ recurrence), but its mamba layers do launch the mixer's two kernels
 (``ssm_conv_gate_in``, ``ssm_gate_norm``), counted while the graph is
 recorded and not in its replays.
 
-Each launch is also a ``torch.library.custom_op`` (``repro_torch::flash_attention``,
-``repro_torch::ssd_scan_fwd``, ``repro_torch::ssd_scan_bwd``,
-``repro_torch::ssm_conv_gate_in``, ``repro_torch::ssm_gate_norm``) whose body is
+The grouped expert products of the dropless MoE (``moe_grouped_mm``) run in
+the prefill and in the decode step alike (counted, like the mixer's, in the
+prefill, the decode step's eager warm-up and its recording).
+
+Each launch but the grouped products' is also a ``torch.library.custom_op``
+(``repro_torch::flash_attention``, ``repro_torch::ssd_scan_fwd``,
+``repro_torch::ssd_scan_bwd``, ``repro_torch::ssm_conv_gate_in``,
+``repro_torch::ssm_gate_norm``) whose body is
 the ctypes launch above, so the dispatcher can trace it: each has a fake
 implementation (shapes only; a fake tensor computes nothing and reaches no
 plain version); the attention's and the scan's also have a FLOP formula from
@@ -28,7 +33,9 @@ a dispatch mode such as fake tensors or FLOP counting, or a tensor subclass
 such as a DTensor); plain CUDA tensors call the launch directly, as before
 the ops existed, and skip the op's Python dispatch.  Under sharding
 rules the models call them through ``distributed.local_call`` on each
-rank's heads (and batch), so the ops themselves see local tensors.
+rank's heads (and batch), so the ops themselves see local tensors.  The
+dropless MoE runs on one device only and is traced by no dry-run cell, so
+its grouped products launch directly.
 
 ``ops.py`` of the reference pads head dims and state widths to 128 lanes and
 sequences to block or chunk multiples for the TPU; the CUDA kernels mask the
@@ -46,6 +53,7 @@ from torch.utils.flop_counter import register_flop_formula
 from repro_torch.kernels import build, costs
 from repro_torch.kernels.ref import (
     flash_attention_ref,
+    moe_grouped_mm_ref,
     ssd_scan_bwd_ref,
     ssd_scan_ref,
     ssm_conv_gate_in_ref,
@@ -673,3 +681,93 @@ def _gate_norm_fake(y, xs, z, d_skip, scale, eps):
 
 
 ssm_gate_norm.launches = 0
+
+
+# ------------------------------------------------------------ the dropless MoE's grouped products
+
+#: up to this many tokens a call takes the decode entry point (tiles of 16 rows, a block per
+#: (column block, expert), empty experts skipped); above it the prefill's (tiles of 128 rows)
+MOE_DECODE_TOKENS = 64
+
+
+def _moe_lib() -> ctypes.CDLL:
+    lib = build.load("moe_grouped")
+    fn = lib.repro_moe_grouped_mm
+    fn.argtypes = [ctypes.c_void_p] * 9 + [ctypes.c_int] * 6 + [ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    return lib
+
+
+def moe_grouped_mm(
+    x: torch.Tensor,
+    w_in: torch.Tensor,
+    w_gate: torch.Tensor,
+    w_out: torch.Tensor,
+    src: torch.Tensor,
+    dst: torch.Tensor,
+    offsets: torch.Tensor,
+) -> torch.Tensor:
+    """The experts' SwiGLU products over routed entries sorted by expert: y (R, D) in entry order;
+    see ``ref.moe_grouped_mm_ref`` for the arguments.  x (T, D), the weights (E, D, F) and (E, F, D),
+    src and dst (R,) and offsets (E+1,) int32, all on one device.
+
+    On the card ``csrc/moe_grouped.cu``: two launches (gate and up with
+    silu, then down) of the decode entry point when T is at most
+    ``MOE_DECODE_TOKENS``, else of the prefill's, under grids that do not
+    depend on the routing, reading the offsets on the device only (a CUDA
+    graph captures it); bf16, D a multiple of 128 and F of 64.  Not
+    differentiable: the model takes the plain version where autograd records.
+    """
+    if x.ndim != 2 or w_in.ndim != 3 or src.ndim != 1:
+        raise ValueError(f"expected x (T,D), w_in (E,D,F), src (R,), got {tuple(x.shape)}, {tuple(w_in.shape)}, "
+                         f"{tuple(src.shape)}")
+    t, d = x.shape
+    e, f = w_in.shape[0], w_in.shape[2]
+    r = src.shape[0]
+    if (tuple(w_in.shape) != (e, d, f) or tuple(w_gate.shape) != (e, d, f) or tuple(w_out.shape) != (e, f, d)
+            or tuple(dst.shape) != (r,) or tuple(offsets.shape) != (e + 1,)):
+        raise ValueError(f"w_in {tuple(w_in.shape)}, w_gate {tuple(w_gate.shape)}, w_out {tuple(w_out.shape)}, dst "
+                         f"{tuple(dst.shape)}, offsets {tuple(offsets.shape)} do not match x {tuple(x.shape)} and "
+                         f"{r} rows")
+    args = (x, w_in, w_gate, w_out, src, dst, offsets)
+    devices = {a.device for a in args}
+    if len(devices) != 1:
+        raise ValueError(f"moe_grouped_mm inputs on different devices: {devices}")
+    if x.device.type == "cpu":
+        return moe_grouped_mm_ref(*args)
+    if x.device.type != "cuda":
+        raise ValueError(f"moe_grouped_mm runs on cpu or cuda, not {x.device}")
+    if torch.is_grad_enabled() and any(a.requires_grad for a in args[:4]):
+        raise RuntimeError("moe_grouped_mm has no gradient: the model runs the plain version where autograd records")
+    if d % 128 or f % 64 or t == 0 or r == 0:
+        raise ValueError(f"moe_grouped_mm takes D a multiple of 128 and F of 64, and some rows: x {tuple(x.shape)}, "
+                         f"F {f}, {r} rows")
+    _check_cuda_operands("moe_grouped_mm", {"x": x, "w_in": w_in, "w_gate": w_gate, "w_out": w_out}, {})
+    for name, a in (("src", src), ("dst", dst), ("offsets", offsets)):
+        if a.dtype != torch.int32 or not a.is_contiguous():
+            raise TypeError(f"moe_grouped_mm takes a contiguous int32 {name}, got {a.dtype}")
+    return _moe_launch(*args)
+
+
+def _moe_launch(x, w_in, w_gate, w_out, src, dst, offsets) -> torch.Tensor:
+    """The grouped kernels' launches on checked CUDA tensors (``moe_grouped_mm``)."""
+    t, d = x.shape
+    e, f = w_in.shape[0], w_in.shape[2]
+    r = src.shape[0]
+    h = x.new_empty((r, f))  # scratch: phase 1's gated rows, phase 2's input
+    y = x.new_empty((r, d))
+    _check_aligned("moe_grouped_mm", (x, w_in, w_gate, w_out, h, y))
+    lib = _moe_lib()
+    with torch.cuda.device(x.device):
+        err = lib.repro_moe_grouped_mm(
+            x.data_ptr(), w_in.data_ptr(), w_gate.data_ptr(), w_out.data_ptr(), src.data_ptr(), dst.data_ptr(),
+            offsets.data_ptr(), h.data_ptr(), y.data_ptr(), t, r, e, d, f, int(t <= MOE_DECODE_TOKENS),
+            torch.cuda.current_stream(x.device).cuda_stream,
+        )
+    if err != 0:
+        raise RuntimeError(f"moe_grouped_mm kernel launch failed with cudaError_t {err}")
+    moe_grouped_mm.launches += 1
+    return y
+
+
+moe_grouped_mm.launches = 0

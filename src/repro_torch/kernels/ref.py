@@ -4,7 +4,8 @@ The CPU tests run these, and ``chip_smoke.py`` holds each CUDA kernel against
 its plain version on the card.  ``ssm_conv_gate_in_ref`` and
 ``ssm_gate_norm_ref`` are the Mamba2 mixer's elementwise chain as the model
 ran it before its kernels existed; training still runs them (autograd
-records them), and the kernels repeat their steps.  ``silu`` and ``rms_norm``
+records them), and the kernels repeat their steps; ``moe_grouped_mm_ref`` is
+the dropless experts' products one expert at a time.  ``silu`` and ``rms_norm``
 are the model's own steps for both (``models.layers`` takes them from here).
 """
 
@@ -150,6 +151,36 @@ def rms_norm(x: torch.Tensor, scale: torch.Tensor, eps: float) -> torch.Tensor:
     var = xf.square().mean(dim=-1, keepdim=True)
     y = xf * torch.rsqrt(var + eps) * scale.float()
     return y.to(x.dtype)
+
+
+def moe_grouped_mm_ref(
+    x: torch.Tensor,
+    w_in: torch.Tensor,
+    w_gate: torch.Tensor,
+    w_out: torch.Tensor,
+    src: torch.Tensor,
+    dst: torch.Tensor,
+    offsets: torch.Tensor,
+) -> torch.Tensor:
+    """The experts' SwiGLU products over routed entries sorted by expert, one expert at a time.
+
+    x (T, D); w_in, w_gate (E, D, F); w_out (E, F, D); src (R,), the token of
+    each sorted row; dst (R,), its entry, the output row it fills; offsets
+    (E+1,), where each expert's rows start (the last R).  Returns y (R, D) in
+    x's dtype: for sorted row r of expert e, y[dst[r]] = ((x[src[r]] @
+    w_in[e]) * silu(x[src[r]] @ w_gate[e])) @ w_out[e], each product rounded
+    once to x's dtype and ``silu`` with its own steps, as the capacity
+    route's ``models.moe.experts``.  It reads the offsets on the host (one
+    product per expert over its rows): the CPU's path and the path where
+    autograd records, never a captured one.
+    """
+    rows = [(e, lo, hi) for e, (lo, hi) in enumerate(zip(offsets[:-1].tolist(), offsets[1:].tolist())) if hi > lo]
+    outs = []
+    for e, lo, hi in rows:
+        xe = x[src[lo:hi].long()]
+        outs.append(torch.matmul(torch.matmul(xe, w_in[e]) * silu(torch.matmul(xe, w_gate[e])), w_out[e]))
+    ys = torch.cat(outs)
+    return ys.new_zeros((src.shape[0], x.shape[1])).index_copy(0, dst.long(), ys)
 
 
 def depthwise_conv1d(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor, state: torch.Tensor | None = None):

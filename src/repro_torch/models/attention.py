@@ -29,6 +29,10 @@ than "kv_sharded") is ``decode_seq_sharded`` (flash-decode).  With no rules
 or one device the policy is "kv_sharded" and every path is the
 single-device one.
 
+With ``qk_norm`` (a ``models.published.PublishedConfig``: OLMoE) an RMS norm
+over the whole q width and the whole k width runs after the projections and
+before RoPE, on every route, so the cache holds the normalised keys.
+
 The flash route passes the causal offset of a cached prefill to the kernel.
 The reference drops it (``repro/models/attention.py:153-158``), which is
 exact only at offset 0, the prefill that ``generate`` runs.
@@ -78,10 +82,15 @@ def _rope(q, k, positions, cfg: ModelConfig):
     return L.apply_rope(q, positions, cfg.rope_theta), L.apply_rope(k, positions, cfg.rope_theta)
 
 
-def _project(x, wq, wk, wv, bq, bk, bv, positions, cfg: ModelConfig):
+def _project(x, wq, wk, wv, bq, bk, bv, positions, cfg: ModelConfig, q_norm=None, k_norm=None):
+    """The projections, then with ``q_norm`` / ``k_norm`` (QK-norm) an RMS norm over the whole q
+    and the whole k width, then the rotation."""
     b, s, _ = x.shape
-    q = L.dense(x, wq, bq).reshape(b, s, -1, cfg.head_dim)
-    k = L.dense(x, wk, bk).reshape(b, s, -1, cfg.head_dim)
+    q, k = L.dense(x, wq, bq), L.dense(x, wk, bk)
+    if q_norm is not None:
+        q, k = L.rms_norm(q, q_norm, cfg.norm_eps), L.rms_norm(k, k_norm, cfg.norm_eps)
+    q = q.reshape(b, s, -1, cfg.head_dim)
+    k = k.reshape(b, s, -1, cfg.head_dim)
     v = L.dense(x, wv, bv).reshape(b, s, -1, cfg.head_dim)
     if positions is not None:
         q, k = _rope(q, k, positions, cfg)
@@ -91,14 +100,24 @@ def _project(x, wq, wk, wv, bq, bk, bv, positions, cfg: ModelConfig):
 def qkv_proj(x: torch.Tensor, p: dict, cfg: ModelConfig, positions: torch.Tensor | None = None):
     """x: (B, S, D) -> q (B,S,H,Dh), k/v (B,S,KV,Dh), rotated by ``positions`` when given.
 
+    With ``cfg.qk_norm`` (``models.published``) q and k are normalised over
+    their whole widths by ``p["q_norm"]`` and ``p["k_norm"]`` before the
+    rotation, so the cache holds normalised keys.
+
     Under distributed rules the projections and the rotation run per rank on
     its heads (by the head policy), q on its tokens under ``seq_parallel``,
-    where k/v are then gathered over the sequence.
+    where k/v are then gathered over the sequence.  QK-norm is not written
+    for that path: its norm runs over every head.
     """
     rules = D.distributed_rules()
     w = [p["wq"], p["wk"], p["wv"], p.get("bq"), p.get("bk"), p.get("bv")]
+    qk_norm = getattr(cfg, "qk_norm", False)
     if rules is None or not isinstance(x, D.DTensor):
-        return _project(x, *w, positions, cfg)
+        norms = (p["q_norm"], p["k_norm"]) if qk_norm else ()
+        return _project(x, *w, positions, cfg, *norms)
+    if qk_norm:
+        raise NotImplementedError(f"{cfg.name}: QK-norm runs on one device; the sharded attention path "
+                                  f"has no norm over the whole q and k widths")
     b, s, _ = x.shape
     q_spec, kv_spec = _head_specs(cfg)
     x_spec = D.sanitize_spec(rules, rules.spec("batch", "seq", None), x.shape)

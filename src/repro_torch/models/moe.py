@@ -32,8 +32,28 @@ Switch-style capacity dispatch, as in the reference:
 The block synchronises with the host nowhere and every shape follows from
 the input's shape and the config (no ``.item()``, ``nonzero`` or boolean-mask
 indexing, no branch on a tensor's value), so a CUDA graph can capture it.
-It runs on no hand-written kernel: the reference leaves the expert products,
-gathers and scatters to XLA, and the port to PyTorch's own ops.
+The capacity route runs on no hand-written kernel: the reference leaves the
+expert products, gathers and scatters to XLA, and the port to PyTorch's own
+ops.
+
+A ``models.published.PublishedConfig`` may ask for the published model's
+routing instead (OLMoE): ``norm_topk_prob`` false weights the experts by the
+raw top-k probabilities, and ``moe_dropless`` computes every entry
+(``dropless_moe``, one device only): the T·k entries are sorted by expert on
+the device (stable, so token-major within an expert), each expert's rows
+start at an offset that stays on the device, and the experts' products run
+grouped over the sorted rows through the hand-written kernel
+``kernels.ops.moe_grouped_mm`` (its plain version where autograd records);
+each entry's output is weighted in bf16 by its probability and a token's k
+outputs summed in fp32 and rounded to bf16 once, as the capacity route's
+``combine``.  No host sync there either, so the decode step still captures.
+
+The dropless route records the phases ``moe.route`` (router product,
+softmax, top-k, the sort and the offsets) and ``moe.experts`` (the grouped
+products and the combine), on the device's clock too when the call has more
+than one position (a prefill; a decode step, eager or recorded into its
+graph, records host time only), and counts its routed entries in
+``moe.entries``; the capacity route records none of them.
 """
 
 from __future__ import annotations
@@ -43,6 +63,9 @@ import math
 import torch
 
 from repro_torch import distributed as D
+from repro_torch import phases
+from repro_torch.kernels import ops
+from repro_torch.kernels.ref import moe_grouped_mm_ref
 from repro_torch.models import layers as L
 from repro_torch.models.config import ModelConfig
 
@@ -52,12 +75,14 @@ def capacity(tokens: int, top_k: int, n_experts: int, capacity_factor: float) ->
     return max(int(math.ceil(tokens * top_k / n_experts * capacity_factor)), 8)
 
 
-def route(xf: torch.Tensor, w_router: torch.Tensor, top_k: int):
-    """xf (T, D) bf16 -> (top_p (T, k) fp32 renormalised, top_i (T, k) int64, aux fp32 scalar)."""
+def route(xf: torch.Tensor, w_router: torch.Tensor, top_k: int, renormalize: bool = True):
+    """xf (T, D) bf16 -> (top_p (T, k) fp32, renormalised to sum to one unless ``renormalize`` is
+    false, top_i (T, k) int64, aux fp32 scalar)."""
     n_exp = w_router.shape[1]
     probs = torch.softmax(L.matmul_f32(xf, w_router), dim=-1)
     top_p, top_i = torch.topk(probs, top_k, dim=-1, sorted=True)
-    top_p = top_p / top_p.sum(dim=-1, keepdim=True)
+    if renormalize:
+        top_p = top_p / top_p.sum(dim=-1, keepdim=True)
     experts = torch.arange(n_exp, device=xf.device)
     density = (top_i[:, :1] == experts).float().mean(dim=0)
     aux = n_exp * (density * probs.mean(dim=0)).sum()
@@ -138,7 +163,7 @@ def local_moe(x: torch.Tensor, w_router: torch.Tensor, w_in: torch.Tensor, w_gat
     """
     b, s, d = x.shape
     xf = x.reshape(b * s, d)
-    top_p, top_i, aux = route(xf, w_router, cfg.moe_top_k)
+    top_p, top_i, aux = route(xf, w_router, cfg.moe_top_k, getattr(cfg, "norm_topk_prob", True))
     cap = capacity(b * s, cfg.moe_top_k, cfg.moe_experts, cfg.capacity_factor)
     buf, slot, keep = dispatch(xf, top_i, w_in.shape[0], cap, tp_index, cfg.moe_experts)
     p = {"w_in": w_in, "w_gate": w_gate, "w_out": w_out}
@@ -146,14 +171,65 @@ def local_moe(x: torch.Tensor, w_router: torch.Tensor, w_in: torch.Tensor, w_gat
     return y.reshape(b, s, d).to(x.dtype), aux
 
 
+def sort_entries(top_i: torch.Tensor, n_exp: int):
+    """The T·k entries (token-major) sorted by expert, on the device: (src (T·k,) int32, each sorted
+    row's token; dst (T·k,) int32, its entry; offsets (E+1,) int32, where each expert's rows start,
+    the last T·k).  The sort is stable, so within an expert the rows stay token-major."""
+    k = top_i.shape[1]
+    sorted_e, order = torch.sort(top_i.reshape(-1), stable=True)
+    offsets = torch.searchsorted(sorted_e, torch.arange(n_exp + 1, device=top_i.device))
+    return (torch.div(order, k, rounding_mode="floor").to(torch.int32), order.to(torch.int32),
+            offsets.to(torch.int32))
+
+
+def combine_entries(y_ent: torch.Tensor, top_p: torch.Tensor) -> torch.Tensor:
+    """Each token's k entry outputs (T·k, D) bf16, token-major, weighted in bf16 by their
+    probabilities and summed in fp32: -> (T, D) bf16, as ``combine``."""
+    t, k = top_p.shape
+    w = top_p.to(L.COMPUTE_DTYPE)
+    return (y_ent.view(t, k, -1) * w[..., None]).sum(dim=1, dtype=torch.float32).to(L.COMPUTE_DTYPE)
+
+
+def dropless_moe(x: torch.Tensor, p: dict, cfg: ModelConfig):
+    """x (B, S, D) bf16 -> (y (B, S, D), aux): every routed entry computed (see the module's note).
+
+    The grouped products run in ``ops.moe_grouped_mm`` (on the card the
+    hand-written kernel, on the CPU its plain version), or in its plain
+    version, one product per expert in torch, where autograd records.
+    """
+    b, s, d = x.shape
+    xf = L.cast(x.reshape(b * s, d))
+    timed = x.device if s > 1 else None
+    with phases.phase("moe.route", timed):
+        top_p, top_i, aux = route(xf, p["w_router"], cfg.moe_top_k, getattr(cfg, "norm_topk_prob", True))
+        src, dst, offsets = sort_entries(top_i, cfg.moe_experts)
+    with phases.phase("moe.experts", timed):
+        args = (xf, L.cast(p["w_in"]), L.cast(p["w_gate"]), L.cast(p["w_out"]), src, dst, offsets)
+        if torch.is_grad_enabled() and any(t.requires_grad for t in args[:4]):
+            y_ent = moe_grouped_mm_ref(*args)
+        else:
+            y_ent = ops.moe_grouped_mm(*args)
+        y = combine_entries(y_ent, top_p)
+    phases.count("moe.entries", b * s * cfg.moe_top_k)
+    return y.reshape(b, s, d).to(x.dtype), aux
+
+
 def moe_block(x: torch.Tensor, p: dict, cfg: ModelConfig) -> tuple[torch.Tensor, torch.Tensor]:
     """x (B, S, D) bf16 -> (y (B, S, D), aux fp32 scalar).
 
+    With ``cfg.moe_dropless``, ``dropless_moe`` on one device; under
+    sharding rules that raises rather than fall back to capacity routing.
     Under sharding rules on a multi-device mesh, ``local_moe`` per rank with
     the experts over tp (the reference's ``shard_map``): its partial y leaves
     as a bf16 sum over tp still to take, aux as a mean over tp.
     """
     rules = D.distributed_rules()
+    dropless = getattr(cfg, "moe_dropless", False)
+    if dropless and rules is not None:
+        raise NotImplementedError(f"{cfg.name}: dropless routing (moe_dropless) runs on one device; its "
+                                  f"sharded path, experts over tp, is not written")
+    if dropless:
+        return dropless_moe(x, p, cfg)
     args = (p["w_router"], p["w_in"], p["w_gate"], p["w_out"])
     if rules is None:
         return local_moe(x, *args, cfg)

@@ -70,7 +70,8 @@ def init_params(
     scales one; the experts' ``w_in`` and ``w_gate`` (E, D, F) N(0, 1) /
     sqrt(D) and ``w_out`` (E, F, D) N(0, 1) / sqrt(F); the SSM's ``dt_bias``
     is log(expm1(0.01)), ``a_log`` log(linspace(1, 16, H)) and ``d_skip`` one,
-    as in ``repro.models.transformer``.  The numbers come from ``generator``, which
+    as in ``repro.models.transformer``; with ``qk_norm`` the q and k norm
+    scales (``attn.q_norm``, ``attn.k_norm``) one too.  The numbers come from ``generator``, which
     must live on ``device``, and differ from ``jax.random``'s for the same
     seed: to compare with the reference, carry its parameters across with
     ``repro_torch.weights.from_jax_params``.
@@ -127,6 +128,9 @@ def init_params(
             p["bq"] = zeros(cfg.n_heads * hd)
             p["bk"] = zeros(cfg.n_kv_heads * hd)
             p["bv"] = zeros(cfg.n_kv_heads * hd)
+        if getattr(cfg, "qk_norm", False):
+            p["q_norm"] = ones(cfg.n_heads * hd)
+            p["k_norm"] = ones(cfg.n_kv_heads * hd)
         return p
 
     def decoder_layer(cross: bool = False):

@@ -313,6 +313,12 @@ def write_trace(tracer, directory: str, stem: str) -> tuple[str, str]:
     return base + ".json", base + ".metrics.json"
 
 
+def names() -> frozenset[str]:
+    """The phase names this process has entered: a profile's ranges of those names are phases,
+    not kernels."""
+    return frozenset(RECORDER._sites)
+
+
 def counter(name: str):
     """The ``obs.metrics()`` counter ``name``."""
     return _registry().counter(name)

@@ -19,9 +19,8 @@ in it waits for the device) around ``train.forward`` (``loss_fn``),
 ``train.backward`` (``autograd.grad``, the remat's recompute included) and
 ``train.optimizer`` (``adamw_update``), those three on the device's clock
 too, and the counter ``train.steps``; a capture ``serve.capture.warmup``
-(the eager step) and ``serve.capture.record`` (the ``torch.cuda.graph``
-block, which waits for the device, empties the allocator's cache and
-records the step while the device idles).
+(the eager step) and ``serve.capture.record`` (which waits for the device,
+then records the step while the device idles).
 """
 
 from __future__ import annotations
@@ -182,6 +181,29 @@ class GraphStep:
         return self.tokens
 
 
+@dataclasses.dataclass
+class _CaptureState:
+    """Per device: the side stream of the captures' warm-ups, the stream they record on, and the
+    last graph recorded, whose memory pool the next capture shares (``CUDAGraph.pool``).  Holding
+    the last graph keeps the pool alive between captures, so the allocator keeps what one capture
+    used for the next."""
+
+    warm: torch.cuda.Stream
+    record: torch.cuda.Stream
+    last: torch.cuda.CUDAGraph | None = None
+
+
+_CAPTURE_STATE: dict[int, _CaptureState] = {}
+
+
+def _capture_state(device: torch.device) -> _CaptureState:
+    key = device.index if device.index is not None else torch.cuda.current_device()
+    state = _CAPTURE_STATE.get(key)
+    if state is None:
+        state = _CAPTURE_STATE[key] = _CaptureState(torch.cuda.Stream(device=key), torch.cuda.Stream(device=key))
+    return state
+
+
 @contextlib.contextmanager
 def _collector_held_off():
     """Python's cyclic collector disabled inside, as it was outside afterwards."""
@@ -209,19 +231,36 @@ def capture_serve_step(cfg: ModelConfig, params, cache: dict, batch: dict) -> Gr
     graph that it frees then (an earlier step's, left in a reference cycle)
     resets itself, which a capture in progress does not permit, and the
     capture fails.
+
+    The warm-up and the recording run on two side streams made once a
+    device, and each graph records into the memory pool of the device's
+    last one, which stays held until the next capture (``_capture_state``);
+    the capture does not empty the allocator's cache, as
+    ``torch.cuda.graph`` does.  So from the second capture on the prefill,
+    the warm-up and the recording reuse the memory that the last call's
+    held, and a call asks the driver for none.  An earlier graph of the pool
+    must not replay after a later one has recorded: ``generate`` replays
+    each graph only before the next capture.
     """
     tokens = batch["tokens"].clone()
     if not tokens.is_cuda or tokens.shape[1] != 1:
         raise ValueError(f"capture_serve_step takes (B, 1) CUDA tokens, got {tuple(tokens.shape)} "
                          f"on {tokens.device}")
+    state = _capture_state(tokens.device)
+    current = torch.cuda.current_stream(tokens.device)
     with phases.phase("serve.capture.warmup"):
-        side = torch.cuda.Stream(device=tokens.device)
-        side.wait_stream(torch.cuda.current_stream(tokens.device))
-        with torch.cuda.stream(side):
+        state.warm.wait_stream(current)
+        with torch.cuda.stream(state.warm):
             serve_step_in_place(cfg, params, cache, tokens)
-        torch.cuda.current_stream(tokens.device).wait_stream(side)
+        current.wait_stream(state.warm)
     graph = torch.cuda.CUDAGraph()
     with phases.phase("serve.capture.record"), _collector_held_off():
-        with torch.cuda.graph(graph):
-            logits = serve_step_in_place(cfg, params, cache, tokens)
+        torch.cuda.synchronize(tokens.device)
+        with torch.cuda.stream(state.record):
+            graph.capture_begin(pool=state.last.pool() if state.last is not None else None)
+            try:
+                logits = serve_step_in_place(cfg, params, cache, tokens)
+            finally:
+                graph.capture_end()
+    state.last = graph
     return GraphStep(graph=graph, tokens=tokens, logits=logits)

@@ -114,7 +114,7 @@ def test_launcher_refuses_unported_paths(tmp_path, capsys):
     assert "--arch is required unless --serve-oracle or --fsck is given" in capsys.readouterr().err
 
 
-@pytest.mark.parametrize("arch", ["qwen2-1.5b", "mamba2-780m"])
+@pytest.mark.parametrize("arch", ["qwen2-1.5b", "mamba2-780m", "olmoe-1b-7b-0924"])
 def test_launcher_runs_reduced_on_cpu(arch, capsys):
     from repro_torch.launch import serve
 

@@ -151,6 +151,16 @@ def test_no_events_inside_a_capture_and_none_off_cuda(registry):
     assert not rec.pending and fake.made == 0 and registry.histogram("a.host_ms").count == 2
 
 
+def test_names_are_the_phases_entered(registry):
+    """``phases.names()``: what a profile's ranges of the port's phases are called (``chip_smoke.py``
+    leaves them out of a call's kernels)."""
+    before = phases.names()
+    with phases.phase("test.names.outer"):
+        with phases.phase("test.names.inner"):
+            pass
+    assert phases.names() - before == {"test.names.outer", "test.names.inner"}
+
+
 def test_histogram_window_and_values_are_a_copy():
     h = Histogram("h", window=3)
     for v in range(5):
